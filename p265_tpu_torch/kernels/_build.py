@@ -1,0 +1,120 @@
+"""Build and load the port's CUDA kernels (`p265_tpu_torch/csrc/*.cu`).
+
+nvcc compiles every source into one shared library with a plain C
+interface, loaded with ctypes.  The library is named by a hash of the
+sources and flags and lives in `p265_tpu_torch/build/`, so a changed source
+rebuilds and an unchanged one loads at once.  The build runs at the first
+kernel launch of a process, never at import: the CPU tests import every
+module on machines with no nvcc.  A missing nvcc or a failed build raises;
+nothing falls back.
+
+Each C entry point takes raw device pointers (`c_void_p`), `c_int` sizes and
+the CUDA stream, launches on that stream without synchronising, and returns
+`cudaGetLastError()`; `check` raises when that is not 0.  `LAUNCHES` counts
+the launches of each kernel, so a run can show that its main path went
+through them.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+
+# sm_90a (not sm_90) keeps Hopper's wgmma/setmaxnreg available to later
+# kernels; -Xptxas -v reports registers, shared memory and spills per kernel.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # levels, qp, is_dst, tskip, bypass|NULL, scale_m|NULL, consts, out,
+    # n, log2, stream
+    "p265_itransform": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # refs, R, H, W, pos, mv, ridx, filt, out, n, block, taps, stream
+    "p265_mc_blocks": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+LAUNCHES = {"itransform": 0, "mc": 0}
+
+_lock = threading.Lock()
+_lib = None
+build_info: dict = {}    # {"path", "seconds", "log"} of this process's load
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (CUDA_HOME, PATH, /usr/local/cuda): "
+                       "the CUDA kernels of p265_tpu_torch cannot be built")
+
+
+def _build() -> tuple[str, str]:
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        h.update(os.path.basename(p).encode())
+        with open(p, "rb") as f:
+            h.update(f.read())
+    so = os.path.join(BUILD_DIR, f"libp265_kernels_{h.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return so, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n"
+                           f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
+    os.replace(tmp, so)
+    return so, r.stdout + r.stderr
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use (thread-safe)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            t0 = time.perf_counter()
+            path, log = _build()
+            lib = ctypes.CDLL(path)
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            lib.p265_error_string.argtypes = [ctypes.c_int]
+            lib.p265_error_string.restype = ctypes.c_char_p
+            build_info.update(path=path, log=log,
+                              seconds=time.perf_counter() - t0)
+            _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a kernel's launch reported a CUDA error."""
+    if err != 0:
+        msg = library().p265_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name}: launch failed: {msg} "
+                           f"(cudaError {err})")

@@ -1,0 +1,307 @@
+"""Loop filters (spec 8.7): deblocking and SAO, bit-exact.
+
+Counterpart of p265_tpu/kernels/loopfilter.py.  The host builds per-edge
+parameter grids (bS, beta, tc) and per-CTB SAO grids in NumPy (copies of
+the JAX module's host half, which cannot be imported where the port runs);
+the device filters whole batches of planes with branch-free int32 torch.
+The horizontal deblocking pass is the vertical filter on the transposed
+planes.  The JAX package ran these as XLA, so they are plain torch.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from p265_tpu.syntax.ctu import SAO_BAND, SAO_EDGE
+from p265_tpu.tables import BETA_TABLE, TC_TABLE, chroma_qp_from_luma
+
+NO_REF = -(1 << 30)
+
+# ---------------------------------------------------------------------------
+# host: edge parameter grids
+# ---------------------------------------------------------------------------
+
+
+def bs_vec(plan, y4p, x4p, y4q, x4q):
+    """Vectorized boundary strength (8.7.2.4) over 4x4-unit index grids."""
+    im, cbf = plan.intra_map, plan.cbf_map
+    intra = im[y4p, x4p].astype(bool) | im[y4q, x4q].astype(bool)
+    has_cbf = cbf[y4p, x4p].astype(bool) | cbf[y4q, x4q].astype(bool)
+    mv_ne = np.zeros(np.shape(y4p), bool)
+    if plan.mv_map is not None:
+        mv, rf = plan.mv_map, plan.ref_map
+        rp = rf[y4p, x4p].astype(np.int64)   # [..., 2]
+        rq = rf[y4q, x4q].astype(np.int64)
+        up0, up1 = rp[..., 0] != NO_REF, rp[..., 1] != NO_REF
+        uq0, uq1 = rq[..., 0] != NO_REF, rq[..., 1] != NO_REF
+        cnt_p = up0.astype(np.int32) + up1.astype(np.int32)
+        cnt_q = uq0.astype(np.int32) + uq1.astype(np.int32)
+        big = np.int64(1) << 60
+
+        def ref_set(r, u0, u1):      # set as sorted (lo, hi) with dedupe
+            a = np.where(u0, r[..., 0], big)
+            b = np.where(u1, r[..., 1], big)
+            lo, hi = np.minimum(a, b), np.maximum(a, b)
+            return lo, np.where(lo == hi, big, hi)
+
+        lp, hp = ref_set(rp, up0, up1)
+        lq, hq = ref_set(rq, uq0, uq1)
+        set_ne = (lp != lq) | (hp != hq)
+
+        mvp = mv[y4p, x4p]           # [..., 2, 2]
+        mvq = mv[y4q, x4q]
+        first_p = np.where(up0[..., None], mvp[..., 0, :], mvp[..., 1, :])
+        first_q = np.where(uq0[..., None], mvq[..., 0, :], mvq[..., 1, :])
+
+        def ge4(a, b):
+            return ((np.abs(a[..., 0] - b[..., 0]) >= 4)
+                    | (np.abs(a[..., 1] - b[..., 1]) >= 4))
+
+        both2 = (cnt_p == 2) & (cnt_q == 2)
+        mv_ne = (set_ne | (cnt_p != cnt_q) | ge4(first_p, first_q)
+                 | (both2 & ge4(mvp[..., 1, :], mvq[..., 1, :])))
+    return np.where(intra, 2,
+                    np.where(has_cbf | mv_ne, 1, 0)).astype(np.int32)
+
+
+def luma_edge_params(plan, vertical: bool):
+    """-> (bs, beta, tc) int32 [n_seg, n_edges], in the orientation the
+    vertical filter consumes (transposed layout for horizontal edges)."""
+    sps, sh = plan.sps, plan.sh
+    w, h = sps.pic_width, sps.pic_height
+    ef, qp = plan.edge_flags, plan.qp_map
+    boff, toff = sh.beta_offset_div2 << 1, sh.tc_offset_div2 << 1
+    n_s = h // 4 if vertical else w // 4
+    edges = np.arange(8, w if vertical else h, 8)
+    if len(edges) == 0:
+        z = np.zeros((n_s, 0), np.int32)
+        return z, z.copy(), z.copy()
+    s4 = np.arange(n_s)[:, None]            # segment index (4-sample rows)
+    e4 = (edges >> 2)[None, :]
+    if vertical:
+        on = (ef[s4, e4] & 1).astype(bool)
+        bs = bs_vec(plan, s4, e4 - 1, s4, e4)
+        qpl = (qp[s4, e4 - 1].astype(np.int32)
+               + qp[s4, e4].astype(np.int32) + 1) >> 1
+    else:
+        on = (ef[e4, s4] & 2).astype(bool)
+        bs = bs_vec(plan, e4 - 1, s4, e4, s4)
+        qpl = (qp[e4 - 1, s4].astype(np.int32)
+               + qp[e4, s4].astype(np.int32) + 1) >> 1
+    bs = np.where(on, bs, 0)
+    beta = np.where(bs > 0,
+                    BETA_TABLE[np.clip(qpl + boff, 0, 51)], 0).astype(np.int32)
+    tc = np.where(bs > 0,
+                  TC_TABLE[np.clip(qpl + 2 * (bs - 1) + toff, 0, 53)],
+                  0).astype(np.int32)
+    return bs, beta, tc
+
+
+def chroma_edge_params(plan, vertical: bool):
+    """-> [tc_cb, tc_cr] [n_seg, n_edges] in chroma coords; 0 = no filter."""
+    sps, sh = plan.sps, plan.sh
+    w, h = sps.pic_width, sps.pic_height
+    ef, qp = plan.edge_flags, plan.qp_map
+    toff = sh.tc_offset_div2 << 1
+    edges = np.arange(16, w if vertical else h, 16)
+    n_s = (h if vertical else w) // 8
+    if len(edges) == 0:
+        z = np.zeros((n_s, 0), np.int32)
+        return [z, z.copy()]
+    s4 = (np.arange(n_s) * 2)[:, None]      # 8-sample rows in 4x4 units
+    e4 = (edges >> 2)[None, :]
+    if vertical:
+        on = (ef[s4, e4] & 1).astype(bool)
+        bs = bs_vec(plan, s4, e4 - 1, s4, e4)
+        qpl = (qp[s4, e4 - 1].astype(np.int32)
+               + qp[s4, e4].astype(np.int32) + 1) >> 1
+    else:
+        on = (ef[e4, s4] & 2).astype(bool)
+        bs = bs_vec(plan, e4 - 1, s4, e4, s4)
+        qpl = (qp[e4 - 1, s4].astype(np.int32)
+               + qp[e4, s4].astype(np.int32) + 1) >> 1
+    strong = on & (bs >= 2)
+    qpc_lut = np.array([chroma_qp_from_luma(q) for q in range(58)], np.int32)
+    tcs = []
+    for c_off in (plan.pps.cb_qp_offset, plan.pps.cr_qp_offset):
+        qpc = qpc_lut[np.clip(qpl + c_off, 0, 57)]
+        tcs.append(np.where(strong,
+                            TC_TABLE[np.clip(qpc + 2 + toff, 0, 53)],
+                            0).astype(np.int32))
+    return tcs
+
+
+def sao_maps(plan, c: int):
+    """Per-CTB SAO grids (type [ny,nx], class [ny,nx], offsets [4,ny,nx]);
+    expansion to pixels happens on the device."""
+    sps = plan.sps
+    nx, ny = sps.pic_width_ctbs, sps.pic_height_ctbs
+    ty = np.zeros((ny, nx), np.int32)
+    cls = np.zeros((ny, nx), np.int32)
+    offs = np.zeros((4, ny, nx), np.int32)
+    for a, rec in enumerate(plan.sao):
+        iy, ix = divmod(a, nx)
+        ty[iy, ix] = rec.type[c]
+        cls[iy, ix] = rec.cls[c]
+        for i in range(4):
+            offs[i, iy, ix] = rec.offsets[c][i]
+    return ty, cls, offs
+
+
+# ---------------------------------------------------------------------------
+# device: deblocking over a batch of planes [B, H, W]
+# ---------------------------------------------------------------------------
+
+
+def _edge_cols(n_e: int, device) -> torch.Tensor:
+    return 8 * (torch.arange(n_e, device=device) + 1)
+
+
+def deblock_luma_vertical(planes, bs, beta, tc):
+    """planes [B,H,W] int32; bs/beta/tc [B, H//4, n_e]; edges at x = 8(k+1).
+    Returns new planes; the inputs are not modified."""
+    B, H, W = planes.shape
+    n_e = bs.shape[2]
+    cols = _edge_cols(n_e, planes.device)
+    p = [planes[:, :, cols - 1 - i] for i in range(4)]   # [B, H, n_e] each
+    q = [planes[:, :, cols + i] for i in range(4)]
+
+    def seg(v):  # [B, H, n_e] -> [B, H//4, 4, n_e]
+        return v.reshape(B, H // 4, 4, n_e)
+
+    sp = [seg(v) for v in p]
+    sq = [seg(v) for v in q]
+    dp0 = (sp[2][:, :, 0] - 2 * sp[1][:, :, 0] + sp[0][:, :, 0]).abs()
+    dp3 = (sp[2][:, :, 3] - 2 * sp[1][:, :, 3] + sp[0][:, :, 3]).abs()
+    dq0 = (sq[2][:, :, 0] - 2 * sq[1][:, :, 0] + sq[0][:, :, 0]).abs()
+    dq3 = (sq[2][:, :, 3] - 2 * sq[1][:, :, 3] + sq[0][:, :, 3]).abs()
+    d = dp0 + dp3 + dq0 + dq3
+    filt = (bs > 0) & (d < beta)
+
+    def strong_line(ln):
+        dpl = dp0 if ln == 0 else dp3
+        dql = dq0 if ln == 0 else dq3
+        return ((2 * (dpl + dql) < (beta >> 2))
+                & ((sp[3][:, :, ln] - sp[0][:, :, ln]).abs()
+                   + (sq[0][:, :, ln] - sq[3][:, :, ln]).abs() < (beta >> 3))
+                & ((sp[0][:, :, ln] - sq[0][:, :, ln]).abs()
+                   < ((5 * tc + 1) >> 1)))
+
+    strong = strong_line(0) & strong_line(3)         # [B, H//4, n_e]
+    dep1 = (dp0 + dp3) < ((beta + (beta >> 1)) >> 3)
+    deq1 = (dq0 + dq3) < ((beta + (beta >> 1)) >> 3)
+
+    def up(m):  # segment grid -> per-line [B, H, n_e]
+        return m.repeat_interleave(4, dim=1)
+
+    tcl = up(tc)
+    p0, p1, p2, p3 = p
+    q0, q1, q2, q3 = q
+
+    def clip(v, lo, hi):
+        return torch.minimum(torch.maximum(v, lo), hi)
+
+    sp0 = clip((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3,
+               p0 - 2 * tcl, p0 + 2 * tcl)
+    sp1 = clip((p2 + p1 + p0 + q0 + 2) >> 2, p1 - 2 * tcl, p1 + 2 * tcl)
+    sp2 = clip((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3,
+               p2 - 2 * tcl, p2 + 2 * tcl)
+    sq0 = clip((q2 + 2 * q1 + 2 * q0 + 2 * p0 + p1 + 4) >> 3,
+               q0 - 2 * tcl, q0 + 2 * tcl)
+    sq1 = clip((q2 + q1 + q0 + p0 + 2) >> 2, q1 - 2 * tcl, q1 + 2 * tcl)
+    sq2 = clip((2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3,
+               q2 - 2 * tcl, q2 + 2 * tcl)
+    delta = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4
+    wok = delta.abs() < tcl * 10
+    dlt = clip(delta, -tcl, tcl)
+    wp0 = (p0 + dlt).clamp(0, 255)
+    wq0 = (q0 - dlt).clamp(0, 255)
+    dp_ = clip((((p2 + p0 + 1) >> 1) - p1 + dlt) >> 1, -(tcl >> 1), tcl >> 1)
+    wp1 = (p1 + dp_).clamp(0, 255)
+    dq_ = clip((((q2 + q0 + 1) >> 1) - q1 - dlt) >> 1, -(tcl >> 1), tcl >> 1)
+    wq1 = (q1 + dq_).clamp(0, 255)
+
+    filt_l = up(filt)
+    strong_l = up(filt & strong)
+    weak_l = filt_l & ~strong_l & wok
+    weakp1 = weak_l & up(dep1)
+    weakq1 = weak_l & up(deq1)
+
+    out = planes.clone()
+    out[:, :, cols - 1] = torch.where(strong_l, sp0,
+                                      torch.where(weak_l, wp0, p0))
+    out[:, :, cols - 2] = torch.where(strong_l, sp1,
+                                      torch.where(weakp1, wp1, p1))
+    out[:, :, cols - 3] = torch.where(strong_l, sp2, p2)
+    out[:, :, cols + 0] = torch.where(strong_l, sq0,
+                                      torch.where(weak_l, wq0, q0))
+    out[:, :, cols + 1] = torch.where(strong_l, sq1,
+                                      torch.where(weakq1, wq1, q1))
+    out[:, :, cols + 2] = torch.where(strong_l, sq2, q2)
+    return out
+
+
+def deblock_chroma_vertical(planes, tc):
+    """planes [B,Hc,Wc] int32; tc [B, Hc//4, n_e]; edges at x = 8(k+1)."""
+    n_e = tc.shape[2]
+    cols = _edge_cols(n_e, planes.device)
+    p1 = planes[:, :, cols - 2]
+    p0 = planes[:, :, cols - 1]
+    q0 = planes[:, :, cols + 0]
+    q1 = planes[:, :, cols + 1]
+    tcl = tc.repeat_interleave(4, dim=1)
+    delta = torch.minimum(torch.maximum(
+        (((q0 - p0) << 2) + p1 - q1 + 4) >> 3, -tcl), tcl)
+    on = tcl > 0
+    out = planes.clone()
+    out[:, :, cols - 1] = torch.where(on, (p0 + delta).clamp(0, 255), p0)
+    out[:, :, cols + 0] = torch.where(on, (q0 - delta).clamp(0, 255), q0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# device: SAO over a batch of planes
+# ---------------------------------------------------------------------------
+
+_EO = ((0, -1, 0, 1), (-1, 0, 1, 0), (-1, -1, 1, 1), (-1, 1, 1, -1))
+
+
+def sao_apply(src, ty_g, cls_g, offs_g, ctb: int):
+    """src [B,H,W] int32; ty_g/cls_g [B,ny,nx]; offs_g [B,4,ny,nx]."""
+    B, H, W = src.shape
+    dev = src.device
+
+    def expand(m):  # [B, ny, nx] -> [B, H, W]
+        e = m.repeat_interleave(ctb, dim=1).repeat_interleave(ctb, dim=2)
+        return e[:, :H, :W]
+
+    ty = expand(ty_g)
+    cls = expand(cls_g)
+    o = [expand(offs_g[:, i]) for i in range(4)]
+    zero = torch.zeros((), dtype=src.dtype, device=dev)
+
+    def pick(k, keys):  # sum_i (k == keys[i]) * o[i]
+        return sum(torch.where(k == kv, o[i], zero)
+                   for i, kv in enumerate(keys))
+
+    v = src
+    rel = ((v >> 3) - cls) & 31
+    d_band = pick(rel, (0, 1, 2, 3))
+    yy = torch.arange(H, device=dev)[:, None]
+    xx = torch.arange(W, device=dev)[None, :]
+    d_edges = []
+    for (dy0, dx0, dy1, dx1) in _EO:
+        n0 = torch.roll(v, shifts=(-dy0, -dx0), dims=(1, 2))
+        n1 = torch.roll(v, shifts=(-dy1, -dx1), dims=(1, 2))
+        valid = ((yy + dy0 >= 0) & (yy + dy0 < H) & (xx + dx0 >= 0)
+                 & (xx + dx0 < W) & (yy + dy1 >= 0) & (yy + dy1 < H)
+                 & (xx + dx1 >= 0) & (xx + dx1 < W))
+        e = torch.sign(v - n0) + torch.sign(v - n1)
+        d_edges.append(torch.where(valid, pick(e, (-2, -1, 1, 2)), zero))
+    d_edge = torch.where(cls == 0, d_edges[0],
+                         torch.where(cls == 1, d_edges[1],
+                                     torch.where(cls == 2, d_edges[2],
+                                                 d_edges[3])))
+    delta = torch.where(ty == SAO_BAND, d_band,
+                        torch.where(ty == SAO_EDGE, d_edge, zero))
+    return (v + delta).clamp(0, 255)

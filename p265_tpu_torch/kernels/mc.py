@@ -1,0 +1,321 @@
+"""Motion compensation (spec 8.5.3.3): 8-tap luma / 4-tap chroma
+interpolation of size-bucketed MC blocks, uni/bi/weighted combination, and
+the scatter into a prediction plane.  Bit-exact vs golden/inter.py.
+
+Counterpart of p265_tpu/kernels/mc.py (host packing copied, device side in
+torch) and, for the interpolation kernel, p265_tpu/kernels/pallas_mc.py
+(csrc/mc.cu behind `mc_blocks`).  The host copies are NumPy only: the JAX
+module they come from cannot be imported where the port runs.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from p265_tpu.tables import CHROMA_FILTER, LUMA_FILTER
+from p265_tpu_torch.kernels import _build
+
+BIT_DEPTH = 8
+
+# MC block-size buckets: each inter PU is tiled greedily with the LARGEST
+# fitting square blocks; a (B+taps-1)^2 window serves a BxB block, so large
+# blocks fetch far fewer window samples per output sample.
+LUMA_BUCKETS = (16, 8, 4)
+CHROMA_BUCKETS = (8, 4, 2)
+
+# ---------------------------------------------------------------------------
+# host: PU -> block arrays (copies of p265_tpu/kernels/mc.py)
+# ---------------------------------------------------------------------------
+
+
+def tile_pu(x0: int, y0: int, w: int, h: int, sizes) -> list:
+    """Greedy largest-square tiling of one PU rectangle -> [(y, x, size)].
+    w/h are multiples of sizes[-1]; sizes are descending powers of two."""
+    def decomp(n):
+        segs = []
+        for s in sizes:
+            k = n // s
+            segs.extend([s] * k)
+            n -= k * s
+        return segs
+    out = []
+    yo = 0
+    for sy in decomp(h):
+        xo = 0
+        for sx in decomp(w):
+            s = min(sx, sy)
+            for dy in range(0, sy, s):
+                for dx in range(0, sx, s):
+                    out.append((y0 + yo + dy, x0 + xo + dx, s))
+            xo += sx
+        yo += sy
+    return out
+
+
+def mc_block_counts(plan) -> dict:
+    """Per-bucket MC block counts {"y16": n, ..., "c2": n} of one picture."""
+    out = {f"{grp}{b}": 0 for grp in ("y", "c")
+           for b in (LUMA_BUCKETS if grp == "y" else CHROMA_BUCKETS)}
+    for p in plan.pus:
+        for grp, sizes, rect in (
+                ("y", LUMA_BUCKETS, (p.x, p.y, p.w, p.h)),
+                ("c", CHROMA_BUCKETS,
+                 (p.x >> 1, p.y >> 1, p.w >> 1, p.h >> 1))):
+            for (_, _, s) in tile_pu(*rect, sizes):
+                out[f"{grp}{s}"] += 1
+    return out
+
+
+def mc_arrays_padded(plan, poc_index: dict, pad_rows: dict):
+    """All inter PUs -> size-bucketed MC block arrays.
+
+    Returns {"y": {block: fields}, "c": {block: fields}} with fields pos
+    [n,2] (y, x), mv0/mv1 [n,2], r0/r1 [n], has1 [n] bool and weight rows
+    wp_0 (luma) or wp_1/wp_2 (cb/cr) [n,5] = (w0, o0, w1, o1, log2_wd);
+    identity weights (1, 0, 1, 0, 0) reproduce unweighted rounding.
+    pad_rows {"y16": n, ...} gives each bucket's row count; the port passes
+    mc_block_counts(plan), so nothing is padded.  Pad rows, where a count
+    exceeds the blocks, sit at pos = (plane height, 0) and are dropped by
+    mc_pred_plane."""
+    pus = plan.pus
+    npu = len(pus)
+
+    def pad_only(grp, block, ph):
+        tgt = pad_rows[f"{grp}{block}"]
+        d = dict(pos=np.full((tgt, 2), 0, np.int32),
+                 mv0=np.zeros((tgt, 2), np.int32),
+                 mv1=np.zeros((tgt, 2), np.int32),
+                 r0=np.zeros(tgt, np.int32),
+                 r1=np.zeros(tgt, np.int32),
+                 has1=np.zeros(tgt, bool))
+        d["pos"][:] = (ph, 0)
+        wp = np.zeros((tgt, 5), np.int32)
+        wp[:, 0] = wp[:, 2] = 1
+        if grp == "y":
+            d["wp_0"] = wp
+        else:
+            d["wp_1"], d["wp_2"] = wp, wp.copy()
+        return d
+
+    if npu == 0:
+        return {grp: {b: pad_only(grp, b, ph) for b in sizes}
+                for grp, sizes, ph in
+                (("y", LUMA_BUCKETS, plan.sps.pic_height),
+                 ("c", CHROMA_BUCKETS, plan.sps.pic_height >> 1))}
+
+    uses1 = np.array([p.motion.uses(1) for p in pus], bool)
+    uses0 = np.array([p.motion.uses(0) for p in pus], bool)
+    l0 = np.where(uses0, 0, 1)                   # first used list per PU
+    mv = np.array([p.motion.mv for p in pus], np.int32).reshape(npu, 2, 2)
+    rpoc = np.array([p.motion.ref_poc for p in pus], np.int64)
+    ridx = np.array([p.motion.ref_idx for p in pus], np.int32)
+    ar = np.zeros((npu, 2), np.int32)
+    for lx in range(2):
+        use = uses1 if lx else uses0
+        for i in np.nonzero(use)[0]:
+            ar[i, lx] = poc_index[int(rpoc[i, lx])]
+    mv0 = mv[np.arange(npu), l0]
+    r0 = ar[np.arange(npu), l0]
+    has1 = uses0 & uses1
+    mv1 = np.where(has1[:, None], mv[:, 1], 0).astype(np.int32)
+    r1 = np.where(has1, ar[:, 1], 0).astype(np.int32)
+
+    wt = None
+    if ((plan.pps.weighted_pred and plan.sh.slice_type == 1)
+            or (plan.pps.weighted_bipred and plan.sh.slice_type == 0)):
+        wt = plan.sh.pred_weights
+    wp_pu = np.zeros((3, npu, 5), np.int32)
+    wp_pu[:, :, 0] = 1   # w0
+    wp_pu[:, :, 2] = 1   # w1
+    if wt is not None:
+        for i, p in enumerate(pus):
+            for c in range(3):
+                denom = wt.luma_log2_denom if c == 0 else wt.chroma_log2_denom
+                wp_pu[c, i, 4] = denom + (14 - BIT_DEPTH) - 6
+                off = 0 if c == 0 else 2 * c
+                e0 = wt.get(int(l0[i]), int(ridx[i, l0[i]]))
+                wp_pu[c, i, 0], wp_pu[c, i, 1] = e0[off], e0[off + 1]
+                if has1[i]:
+                    e1 = wt.get(1, int(ridx[i, 1]))
+                    wp_pu[c, i, 2], wp_pu[c, i, 3] = e1[off], e1[off + 1]
+
+    out = {}
+    for grp, sizes, ph in (("y", LUMA_BUCKETS, plan.sps.pic_height),
+                           ("c", CHROMA_BUCKETS, plan.sps.pic_height >> 1)):
+        tiles = {b: [] for b in sizes}   # per bucket: (y, x, pu_idx)
+        for i, p in enumerate(pus):
+            if grp == "y":
+                rect = (p.x, p.y, p.w, p.h)
+            else:
+                rect = (p.x >> 1, p.y >> 1, p.w >> 1, p.h >> 1)
+            for (ty, tx, s) in tile_pu(*rect, sizes):
+                tiles[s].append((ty, tx, i))
+        out[grp] = {}
+        for b in sizes:
+            rows = tiles[b]
+            n = len(rows)
+            tgt = pad_rows[f"{grp}{b}"]
+            if tgt < n:
+                raise ValueError(f"pad_rows[{grp}{b}]={tgt} < {n} blocks")
+            if n == 0:
+                out[grp][b] = pad_only(grp, b, ph)
+                continue
+            pos = np.array([(r[0], r[1]) for r in rows], np.int32)
+            pu_of = np.array([r[2] for r in rows], np.int32)
+
+            def padded(a, fill=0):
+                full = np.full((tgt,) + a.shape[1:], fill, a.dtype)
+                full[:n] = a
+                return full
+
+            d = dict(pos=padded(pos), mv0=padded(mv0[pu_of]),
+                     mv1=padded(mv1[pu_of]), r0=padded(r0[pu_of]),
+                     r1=padded(r1[pu_of]), has1=padded(has1[pu_of]))
+            d["pos"][n:] = (ph, 0)
+            if grp == "y":
+                d["wp_0"] = padded(wp_pu[0][pu_of])
+            else:
+                d["wp_1"] = padded(wp_pu[1][pu_of])
+                d["wp_2"] = padded(wp_pu[2][pu_of])
+            out[grp][b] = d
+    return out
+
+
+# ---------------------------------------------------------------------------
+# device
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _filters(taps: int, device: torch.device) -> torch.Tensor:
+    """[fractions, taps] int32 interpolation filters."""
+    f = LUMA_FILTER if taps == 8 else CHROMA_FILTER
+    return torch.tensor(np.asarray(f), dtype=torch.int32, device=device)
+
+
+def mc_blocks_ref(refs, pos, ridx, mv, block: int, taps: int):
+    """Plain torch version: 14-bit MC intermediates [n, block, block] int32.
+
+    refs [R,H,W] uint8 reference planes; pos [n,2] (y, x) block origins;
+    ridx [n] int32; mv [n,2] (mvx, mvy) int32 in quarter (luma) or eighth
+    (chroma) pel.  Window samples are clamped to the picture (spec edge
+    rule), so any MV is exact."""
+    # fraction mask, integer-MV shift (quarter / eighth pel), window lead
+    fmask, unit, half = (3, 2, 3) if taps == 8 else (7, 3, 1)
+    filt = _filters(taps, refs.device)
+    R, H, W = refs.shape
+    span = block + taps - 1
+    iy = pos[:, 0] + (mv[:, 1] >> unit) - half
+    ix = pos[:, 1] + (mv[:, 0] >> unit) - half
+    ar = torch.arange(span, device=refs.device)
+    ys = (iy[:, None] + ar[None, :]).clamp(0, H - 1).long()
+    xs = (ix[:, None] + ar[None, :]).clamp(0, W - 1).long()
+    r = ridx.clamp(0, R - 1).long()
+    win = refs[r[:, None, None], ys[:, :, None], xs[:, None, :]].to(
+        torch.int32)
+    fh = filt[(mv[:, 0] & fmask).long()]
+    fv = filt[(mv[:, 1] & fmask).long()]
+    tmp = sum(fh[:, t, None, None] * win[:, :, t:t + block]
+              for t in range(taps)) >> (BIT_DEPTH - 8)
+    out = sum(fv[:, t, None, None] * tmp[:, t:t + block, :]
+              for t in range(taps))
+    return out >> 6
+
+
+def mc_blocks(refs, pos, ridx, mv, block: int, taps: int):
+    """Same contract as mc_blocks_ref.  A CPU tensor takes the plain
+    version; a CUDA tensor launches csrc/mc.cu."""
+    if refs.device.type == "cpu":
+        return mc_blocks_ref(refs, pos, ridx, mv, block, taps)
+    if refs.device.type != "cuda":
+        raise ValueError(f"mc_blocks: no kernel for {refs.device}")
+    n, dev = pos.shape[0], refs.device
+    for name, t, dt, shape in (("refs", refs, torch.uint8, None),
+                               ("pos", pos, torch.int32, (n, 2)),
+                               ("ridx", ridx, torch.int32, (n,)),
+                               ("mv", mv, torch.int32, (n, 2))):
+        if (t.dtype != dt or t.device != dev
+                or (shape is not None and tuple(t.shape) != shape)):
+            raise ValueError(f"mc_blocks: {name} must be {dt} {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if refs.dim() != 3 or (block, taps) not in (
+            (16, 8), (8, 8), (4, 8), (8, 4), (4, 4), (2, 4)):
+        raise ValueError(f"mc_blocks: bad refs {tuple(refs.shape)} or "
+                         f"geometry {(block, taps)}")
+    refs, pos, ridx, mv = (t.contiguous() for t in (refs, pos, ridx, mv))
+    out = torch.empty((n, block, block), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    R, H, W = refs.shape
+    lib = _build.library()
+    filt = _filters(taps, dev)
+    with torch.cuda.device(dev):
+        err = lib.p265_mc_blocks(
+            refs.data_ptr(), R, H, W, pos.data_ptr(), mv.data_ptr(),
+            ridx.data_ptr(), filt.data_ptr(), out.data_ptr(), n, block,
+            taps, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "mc")
+    _build.LAUNCHES["mc"] += 1
+    return out
+
+
+def combine(p0, p1, has_l1, w_params):
+    """uni/bi (+ explicit weighted) combination -> 8-bit samples, int32.
+
+    p1 None: the picture is uni-directional, the bi path is skipped.
+    w_params None, or (w0, o0, w1, o1, log2_wd) [n] each."""
+    if w_params is None:
+        uni = ((p0 + (1 << 5)) >> 6).clamp(0, 255)
+        if p1 is None:
+            return uni
+        bi = ((p0 + p1 + (1 << 6)) >> 7).clamp(0, 255)
+        return torch.where(has_l1[:, None, None], bi, uni)
+    w0, o0, w1, o1, log2_wd = (a[:, None, None] for a in w_params)
+    shift_u = log2_wd + 6
+    one = torch.ones_like(shift_u)
+    pu = torch.bitwise_right_shift(
+        p0 * w0 + torch.bitwise_left_shift(one, shift_u - 1), shift_u)
+    uni = (pu + o0).clamp(0, 255)
+    if p1 is None:
+        return uni
+    sb = p0 * w0 + p1 * w1 + torch.bitwise_left_shift(o0 + o1 + 1, shift_u)
+    bi = torch.bitwise_right_shift(sb, log2_wd + 7).clamp(0, 255)
+    return torch.where(has_l1[:, None, None], bi, uni)
+
+
+def mc_pred_plane(ref_planes, buckets, shape: tuple, taps: int,
+                  has_bi: bool, wp_key: str):
+    """One component's MC prediction plane [H, W] int32.
+
+    ref_planes [R,H,W] uint8 (device-resident DPB slabs); buckets {block:
+    fields} as mc_arrays_padded gives them, as tensors on the same device.
+    has_bi False skips the second list.  Pad blocks (pos = (H, 0)) scatter
+    into a one-sample guard past the plane that is cut off: torch has no
+    dropping scatter, and this keeps the scatter free of a host sync."""
+    H, W = shape
+    dev = ref_planes.device
+    idx_parts, val_parts = [], []
+    for block in sorted(buckets, reverse=True):
+        d = buckets[block]
+        pos = d["pos"]
+        if pos.shape[0] == 0:
+            continue
+        p0 = mc_blocks(ref_planes, pos, d["r0"], d["mv0"], block, taps)
+        p1 = (mc_blocks(ref_planes, pos, d["r1"], d["mv1"], block, taps)
+              if has_bi else None)
+        wp = tuple(d[wp_key][:, k] for k in range(5))
+        samp = combine(p0, p1, d["has1"], wp)
+        ar = torch.arange(block, device=dev)
+        flat = ((pos[:, 0, None, None] + ar[None, :, None]) * W
+                + pos[:, 1, None, None] + ar[None, None, :]).reshape(-1)
+        idx_parts.append(flat)
+        val_parts.append(samp.reshape(-1))
+    plane = torch.zeros(H * W + 1, dtype=torch.int32, device=dev)
+    if idx_parts:
+        idx = torch.cat(idx_parts).long()
+        idx = torch.where((idx >= 0) & (idx < H * W), idx, H * W)
+        plane[idx] = torch.cat(val_parts)
+    return plane[:H * W].reshape(H, W)

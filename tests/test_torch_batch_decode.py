@@ -1,0 +1,173 @@
+"""Port's batch packing and per-batch device program vs the JAX reference.
+
+build_batch against the JAX _build_batch(policy=None) -- the port keeps
+exact shapes, so each JAX array is compared on its real rows and its pad
+rows are checked to be padding -- and all four outputs of
+decode_batch_planes against the JAX decode_batch_planes, for a 2-frame
+intra batch and for a fused-MC P picture whose reference slabs come from
+slabs_from_numpy.  Bit-exact.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import p265_tpu.kernels.mc as jmc
+import p265_tpu.pipeline.batch_decode as jbd
+from p265_tpu.golden.decoder import GoldenDecoder
+from p265_tpu.hls.params import PPS, SPS
+from p265_tpu.plan.frame_plan import build_tensor_plan
+from p265_tpu.testgen.encoder import (Encoder, IntraEncoder,
+                                      make_moving_sequence, make_test_image)
+from p265_tpu_torch.kernels import mc
+from p265_tpu_torch.pipeline import batch_decode as bd
+from p265_tpu_torch.pipeline.decoder import slabs_from_numpy
+from p265_tpu_torch.pipeline.wavefront import SCAN_FIELDS
+
+
+def _intra(seed, w=128, h=64, qp=30):
+    sps = SPS(pic_width=w, pic_height=h)
+    pps = PPS(init_qp=qp, sign_data_hiding=True)
+    stream, _, _ = IntraEncoder(sps, pps, qp=qp, seed=seed).encode_frame(
+        make_test_image(w, h, seed))
+    return GoldenDecoder().decode_stream(stream)[0]
+
+
+@pytest.fixture(scope="module")
+def intra_pair():
+    golds = [_intra(s) for s in (0, 1)]
+    return golds, [build_tensor_plan(g.plan) for g in golds]
+
+
+@pytest.fixture(scope="module")
+def p_picture():
+    """A P picture of a 96x64 LDP stream, its refs and MC block arrays."""
+    sps = SPS(pic_width=96, pic_height=64, temporal_mvp_enabled=True)
+    pps = PPS(init_qp=32, sign_data_hiding=True)
+    seq = make_moving_sequence(96, 64, 3, seed=41)
+    stream, _ = Encoder(sps, pps, qp=32, seed=41).encode_sequence(seq)
+    gold = GoldenDecoder().decode_stream(stream)
+    g = next(f for f in gold if f.plan.pus)
+    pocs = sorted(set(g.plan.l0_pocs) | set(g.plan.l1_pocs))
+    pidx = {p: i for i, p in enumerate(pocs)}
+    cnt = mc.mc_block_counts(g.plan)
+    by_poc = {f.poc: f.planes for f in gold}
+    return dict(g=g, pocs=pocs, by_poc=by_poc,
+                tplan=build_tensor_plan(g.plan, skip_pred=True),
+                mc_jax=jmc.mc_arrays_padded(g.plan, pidx, cnt),
+                mc=mc.mc_arrays_padded(g.plan, pidx, cnt))
+
+
+def _unpack(bufs, specs):
+    out = []
+    for bi, off, dt, shape in specs:
+        n = int(np.prod(shape, dtype=np.int64))
+        raw = np.asarray(bufs[bi])[off:off + n]
+        out.append((raw != 0 if np.dtype(dt) == np.bool_ else raw)
+                   .reshape(shape))
+    return out
+
+
+def _check_build(tplans, plans, mc_jax=None, mc_port=None):
+    bufs, meta = jbd._build_batch(tplans, plans, policy=None, mc=mc_jax)
+    m = dict(meta)
+    arrays = _unpack(bufs, m["specs"])
+    got = bd.build_batch(tplans, plans, mc=mc_port)
+    gm = got["meta"]
+    for k in ("F", "shape", "seg_h", "seg_hc", "H", "W", "Hc", "Wc",
+              "deblock", "sao_luma", "sao_chroma", "ctb", "has_masks"):
+        assert gm[k] == m[k], k
+    # scan buckets: real rows equal, the JAX pad rows are padding
+    assert sorted(got["tu"]) == sorted(log2 for log2, _ in m["tu"])
+    for log2, fields in m["tu"]:
+        want = {f: arrays[i] for f, i in fields}
+        d = got["tu"][log2]
+        n = d["pos"].shape[0]
+        ph = m["shape"][0]
+        assert np.all(want["pos"][n:] == (ph, 0))
+        assert not want["inter"][:n].any()
+        for f in SCAN_FIELDS:
+            if f in d or f in want:
+                assert np.array_equal(d[f], want[f][:n]), (log2, f)
+        starts, steps = d["starts"], got["n_steps"]
+        counts = want["counts"]
+        assert np.array_equal(np.diff(starts), counts[:steps])
+        assert not counts[steps:].any()
+        for k in range(steps):
+            row = want["idx_map"][k]
+            c = counts[k]
+            assert np.array_equal(row[:c], np.arange(starts[k],
+                                                     starts[k + 1]))
+            assert np.all(row[c:] == n)
+    # hoisted inter TUs
+    if m["itu"] is None:
+        assert got["itu"] is None
+    else:
+        assert sorted(got["itu"]) == [log2 for log2, _ in m["itu"]]
+        for log2, fields in m["itu"]:
+            want = {f: arrays[i] for f, i in fields}
+            d = got["itu"][log2]
+            n = d["pos"].shape[0]
+            assert n and np.all(want["pos"][n:] == (m["shape"][0], 0))
+            for f, a in d.items():
+                assert np.array_equal(a, want[f][:n]), (log2, f)
+    # filter grids and masks
+    fp = dict(m["fp"])
+    assert sorted(got["fp"]) == sorted(fp)
+    for k, i in fp.items():
+        assert np.array_equal(got["fp"][k], arrays[i]), k
+    return got
+
+
+def test_build_batch_intra_matches_jax(intra_pair):
+    golds, tplans = intra_pair
+    _check_build(tplans, [g.plan for g in golds])
+
+
+def test_build_batch_mc_matches_jax(p_picture):
+    d = p_picture
+    got = _check_build([d["tplan"]], [d["g"].plan], mc_jax=[d["mc_jax"]],
+                       mc_port=[d["mc"]])
+    assert got["itu"] is not None
+
+
+def _compare_outputs(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == torch.uint8
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+def test_decode_batch_planes_intra_pair_matches_jax(intra_pair):
+    golds, tplans = intra_pair
+    plans = [g.plan for g in golds]
+    want = jbd.decode_batch_planes(tplans, plans)
+    got = bd.decode_batch_planes(bd.build_batch(tplans, plans), None, "cpu")
+    _compare_outputs(got, want)
+    F = len(golds)
+    for f, g in enumerate(golds):   # chroma: F cb planes, then F cr
+        for i, (y, cb, cr) in enumerate(((got[0][f], got[1][f],
+                                          got[1][F + f]),
+                                         (got[2][f], got[3][f],
+                                          got[3][F + f]))):
+            ref = g.prefilter if i == 0 else g.planes
+            for c, p in enumerate((y, cb, cr)):
+                assert np.array_equal(p.numpy(), ref[c]), (f, i, c)
+
+
+def test_decode_batch_planes_fused_mc_matches_jax(p_picture):
+    d = p_picture
+    plan, pocs, by_poc = d["g"].plan, d["pocs"], d["by_poc"]
+    refs_jax = tuple(tuple(jnp.asarray(by_poc[p][c].astype(np.uint8))
+                           for p in pocs) for c in range(3))
+    want = jbd.decode_batch_planes([d["tplan"]], [plan], mc=[d["mc_jax"]],
+                                   refs=(refs_jax,))
+    slabs = {p: slabs_from_numpy(by_poc[p], "cpu") for p in pocs}
+    stacks = tuple(torch.stack([slabs[p][c] for p in pocs])
+                   for c in range(3))
+    batch = bd.build_batch([d["tplan"]], [plan], mc=[d["mc"]])
+    got = bd.decode_batch_planes(batch, [stacks], "cpu")
+    _compare_outputs(got, want)
+    g = d["g"]
+    assert np.array_equal(got[2][0].numpy(), g.planes[0])
+    assert np.array_equal(got[3][0].numpy(), g.planes[1])
+    assert np.array_equal(got[3][1].numpy(), g.planes[2])

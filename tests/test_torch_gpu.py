@@ -1,0 +1,120 @@
+"""CUDA kernels of the port against their plain torch versions, on the card.
+
+These tests need a CUDA device (and nvcc to build csrc/*.cu); without one
+each test skips.  Run them on a machine with a card:
+
+    python -m pytest tests/test_torch_gpu.py -q
+
+The decision is taken inside the fixture, never at import, so that every
+test process collects the same tests.
+"""
+import numpy as np
+import pytest
+import torch
+
+from p265_tpu.golden.decoder import GoldenDecoder
+from p265_tpu.hls.params import PPS, SPS
+from p265_tpu.testgen.encoder import (Encoder, IntraEncoder,
+                                      make_moving_sequence, make_test_image)
+from p265_tpu_torch.kernels import _build, itransform, mc
+from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("scale", [False, True])
+@pytest.mark.parametrize("log2", [2, 3, 4, 5])
+def test_itransform_kernel_matches_plain(cuda, log2, scale):
+    rng = np.random.default_rng(log2 + 10 * scale)
+    s, n = 1 << log2, 300
+    lv = ((rng.random((n, s, s)) < 0.3)
+          * rng.integers(-300, 300, (n, s, s))).astype(np.int32)
+    lv[:8] = rng.integers(-32768, 32768, (8, s, s))
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        lv, np.arange(n, dtype=np.int32) % 52, rng.random(n) < 0.4,
+        rng.random(n) < 0.3, rng.random(n) < 0.1)]
+    sm = (torch.from_numpy(rng.integers(1, 256, (n, s, s)).astype(np.int32))
+          .to(cuda) if scale else None)
+    lvt, qp, dst, tsk, byp = args
+    before = _build.LAUNCHES["itransform"]
+    got = itransform.batch_residual(lvt, qp, dst, tsk, log2, bypass=byp,
+                                    scale_m=sm)
+    assert _build.LAUNCHES["itransform"] == before + 1
+    want = itransform.batch_residual_ref(lvt, qp, dst, tsk, log2,
+                                         bypass=byp, scale_m=sm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("block,taps", [(16, 8), (8, 8), (4, 8), (8, 4),
+                                        (4, 4), (2, 4)])
+def test_mc_kernel_matches_plain(cuda, block, taps):
+    rng = np.random.default_rng(block + taps)
+    H, W, R, n = 120, 200, 3, 1000
+    refs = torch.from_numpy(rng.integers(0, 256, (R, H, W)).astype(
+        np.uint8)).to(cuda)
+    unit = 4 if taps == 8 else 8
+    pos = np.stack([rng.integers(0, H // block, n) * block,
+                    rng.integers(0, W // block, n) * block], 1)
+    args = [torch.from_numpy(a.astype(np.int32)).to(cuda) for a in (
+        pos, rng.integers(0, R, n),
+        rng.integers(-250 * unit, 250 * unit, (n, 2)))]
+    got = mc.mc_blocks(refs, *args, block, taps)
+    want = mc.mc_blocks_ref(refs, *args, block, taps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _gop(structure, seed, n=4, w=96, h=64, **pps_kw):
+    sps = SPS(pic_width=w, pic_height=h, temporal_mvp_enabled=True,
+              num_reorder_pics=2, max_dec_pic_buffering=5)
+    pps = PPS(init_qp=32, sign_data_hiding=True, **pps_kw)
+    frames = make_moving_sequence(w, h, n, seed=seed)
+    return Encoder(sps, pps, qp=32, seed=seed).encode_sequence(
+        frames, structure=structure)[0]
+
+
+def _intra(w, h, seed, sps_kw=None, pps_kw=None):
+    sps = SPS(pic_width=w, pic_height=h, **(sps_kw or {}))
+    pps = PPS(init_qp=30, sign_data_hiding=True, **(pps_kw or {}))
+    return IntraEncoder(sps, pps, qp=30, seed=seed).encode_frame(
+        make_test_image(w, h, seed))[0]
+
+
+STREAMS = {
+    "RA": lambda: _gop("RA", 50, n=5),
+    "WP_RA": lambda: _gop("RA", 14, n=5, weighted_pred=True,
+                          weighted_bipred=True),
+    "tiles_wpp_LDP": lambda: _gop("LDP", 15, n=3, w=128, h=128,
+                                  tiles_enabled=True, num_tile_columns=2,
+                                  num_tile_rows=2,
+                                  entropy_coding_sync_enabled=True),
+    "I_104x56": lambda: _intra(104, 56, 21),
+    "bypass": lambda: _intra(96, 64, 3,
+                             pps_kw=dict(transquant_bypass_enabled=True)),
+    "scaling_tskip": lambda: _intra(96, 64, 5,
+                                    sps_kw=dict(scaling_list_enabled=True),
+                                    pps_kw=dict(transform_skip_enabled=True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_pipelined_decoder_on_cuda_matches_golden(cuda, name):
+    data = STREAMS[name]()
+    gold = GoldenDecoder().decode_stream(data)
+    _build.reset_launch_counts()
+    got = PipelinedTorchDecoder(cuda).decode_stream(data)
+    assert _build.LAUNCHES["itransform"] > 0
+    assert _build.LAUNCHES["mc"] > 0 or not any(g.plan.pus for g in gold)
+    assert [f.poc for f in got] == [g.poc for g in gold]
+    for f, g in zip(got, gold):
+        for c in range(3):
+            assert np.array_equal(f.planes[c], g.planes[c]), (f.poc, c)
+            assert np.array_equal(f.prefilter[c].cpu().numpy(),
+                                  g.prefilter[c]), (f.poc, c)
