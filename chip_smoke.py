@@ -7,17 +7,23 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
 
 1. device: a CUDA card must be present; prints nvidia-smi's name and power
    limit, the torch and CUDA versions; the native C parse must be built.
-2. build: compiles the CUDA kernels (csrc/*.cu) with nvcc, timed.
-3. kernels vs plain: each kernel against its plain torch version on the
-   card, torch.equal, over a sweep of sizes, modes and out-of-picture MVs.
-4. small streams: an LDP and an RA (bi-pred) stream from the repo's test
-   encoder, PipelinedTorchDecoder on cuda vs GoldenDecoder, bit-exact.
+2. build: compiles the CUDA kernels (csrc/*.cu, one nvcc per source, all at
+   once) and links them, timed.
+3. kernels vs plain: each grouped kernel against its plain torch version on
+   the card, torch.equal, over sweeps of sizes, modes and MVs (to 300 px
+   outside the picture), each sweep packed as one multi-group launch.
+4. small streams: the committed 96x64 LDP and RA (bi-pred) streams,
+   PipelinedTorchDecoder on cuda vs the port's GoldenDecoder, bit-exact.
 5. s1080_ldp4 (1920x1080, IDR + 3 P, QP 32; p265_tpu_torch/data): one
    cold pass bit-exact against GoldenDecoder on every plane, with the
-   kernel launch counters reset just before it; then 3 warm passes.
-6. per-kernel time against the plain version, over every call the main
-   path made on one pass of s1080_ldp4.
+   kernel launch counters reset just before it (3 MC and 7 residual
+   launches a pass); then 3 warm passes.
+6. per-kernel time against the plain version and the bound, over every
+   call the main path made on one pass of s1080_ldp4: the CUDA-event
+   window of the calls (`ms`, host launch gaps included) and the kernel's
+   own device time from torch.profiler (`device_ms`).
 
+Nothing of JAX and nothing of the JAX package p265_tpu may be imported.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -34,15 +40,19 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-STREAM = os.path.join(ROOT, "p265_tpu_torch", "data", "s1080_ldp4.265")
-STREAM_SHA256 = ("d1b7ea38c13d3c7e926c9010d8378b37"
-                 "e8abec8a7cd4dceb06fce40c5e00c905")
+DATA = os.path.join(ROOT, "p265_tpu_torch", "data")
+STREAM = os.path.join(DATA, "s1080_ldp4.265")
 N_FRAMES = 4
-KERNELS = {  # name -> (source, the TPU kernel it replaces)
+KERNELS = {  # name -> (source, the TPU kernel it replaces, launches a pass)
     "itransform": ("p265_tpu_torch/csrc/itransform.cu",
-                   "p265_tpu/kernels/pallas_itransform.py:39"),
-    "mc": ("p265_tpu_torch/csrc/mc.cu", "p265_tpu/kernels/pallas_mc.py:44"),
+                   "p265_tpu/kernels/pallas_itransform.py:39", 7),
+    "mc": ("p265_tpu_torch/csrc/mc.cu", "p265_tpu/kernels/pallas_mc.py:44",
+           3),
 }
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, and int32
+# multiply-adds/s on the CUDA cores (132 SMs x 64 int32 lanes x 1.98 GHz)
+PEAK_BYTES = 3.35e12
+PEAK_INT32 = 132 * 64 * 1.98e9
 
 
 def log(*a) -> None:
@@ -58,6 +68,8 @@ def phase_device() -> str:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    require(os.path.isdir(os.path.join(ROOT, "p265_tpu_torch")),
+            f"p265_tpu_torch is not beside {__file__}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -66,7 +78,7 @@ def phase_device() -> str:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, "
         f"{torch.cuda.device_count()} device(s)")
-    from p265_tpu.native.parse import native_parse_available
+    from p265_tpu_torch.native.parse import native_parse_available
     require(native_parse_available(), "native C parse is not available")
     return torch.cuda.get_device_name(0)
 
@@ -81,20 +93,62 @@ def phase_build() -> None:
             log("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
 
-def _k1_inputs(rng, log2: int, n: int = 150, scale: bool = False):
+def _k1_inputs(rng, log2: int, n: int = 150, scale: bool = False,
+               dtype=np.int32) -> dict:
     s = 1 << log2
     lv = ((rng.random((n, s, s)) < 0.2)
-          * rng.integers(-200, 200, (n, s, s))).astype(np.int32)
+          * rng.integers(-200, 200, (n, s, s))).astype(dtype)
     lv[:5] = rng.integers(-32768, 32768, (5, s, s))
-    qp = np.arange(n, dtype=np.int32) % 52
     dst = (rng.random(n) < 0.4) if log2 == 2 else np.zeros(n, bool)
     tsk = ((rng.random(n) < 0.3) & ~dst) if log2 == 2 else np.zeros(n, bool)
-    byp = rng.random(n) < 0.15
-    sm = None
+    f = dict(coeffs=lv, qp=np.arange(n, dtype=np.int32) % 52, is_dst=dst,
+             tskip=tsk, bypass=rng.random(n) < 0.15)
     if scale:
-        sm = rng.integers(1, 256, (n, s, s)).astype(np.int32)
-        sm[:8] = 255
-    return lv, qp, dst, tsk, byp, sm
+        f["scale_m"] = rng.integers(1, 256, (n, s, s)).astype(np.int32)
+        f["scale_m"][:8] = 255
+    return f
+
+
+def _mc_groups(rng, dev, far_px: int, n: int = 4096) -> list:
+    """All six geometries, list 0 and a second list, on 1080p luma and
+    chroma reference stacks: one launch of twelve groups."""
+    import torch
+    R = 3
+    stacks = {taps: torch.from_numpy(rng.integers(0, 256, (R, H, W)).astype(
+        np.uint8)).to(dev) for taps, H, W in ((8, 1080, 1920), (4, 540, 960))}
+    groups = []
+    for block, taps in ((16, 8), (8, 8), (4, 8), (8, 4), (4, 4), (2, 4)):
+        refs = stacks[taps]
+        H, W = refs.shape[1:]
+        unit = 4 if taps == 8 else 8                     # MV units per pel
+        for _ in range(2):
+            pos = np.stack([rng.integers(0, (H - block) // block + 1, n),
+                            rng.integers(0, (W - block) // block + 1, n)],
+                           1) * block
+            pos[:64] = [[0, 0], [H - block, W - block]] * 32  # corners
+            mv = rng.integers(-far_px * unit, far_px * unit, (n, 2))
+            args = [torch.from_numpy(a.astype(np.int32)).to(dev)
+                    for a in (pos, rng.integers(0, R, n), mv)]
+            groups.append((refs, *args, block, taps))
+    return groups
+
+
+def _max_err(got, want, name: str) -> int:
+    """Max abs difference of two kernel results (a list of MC blocks or a
+    dict of residuals); raises unless they are torch.equal."""
+    if isinstance(got, dict):
+        require(list(got) == list(want), f"{name}: sizes differ")
+        got, want = list(got.values()), list(want.values())
+    require(len(got) == len(want), f"{name}: group counts differ")
+    err = 0
+    for g, w in zip(got, want):
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                f"{name}: shape or dtype differs")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    require(err == 0, f"{name} differs from its plain version: max abs "
+            f"error {err}")
+    return err
 
 
 def phase_compare(errs: dict) -> None:
@@ -102,55 +156,39 @@ def phase_compare(errs: dict) -> None:
     from p265_tpu_torch.kernels import itransform, mc
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
-    t = lambda a: None if a is None else torch.from_numpy(a).to(dev)  # noqa
-    for log2 in (2, 3, 4, 5):
-        for scale in (False, True):
-            lv, qp, dst, tsk, byp, sm = map(t, _k1_inputs(rng, log2,
-                                                          scale=scale))
-            got = itransform.batch_residual(lv, qp, dst, tsk, log2,
-                                            bypass=byp, scale_m=sm)
-            want = itransform.batch_residual_ref(lv, qp, dst, tsk, log2,
-                                                 bypass=byp, scale_m=sm)
+    for scale in (False, True):
+        for dtype in (np.int32, np.int16):
+            groups = {log2: {k: torch.from_numpy(v).to(dev)
+                             for k, v in _k1_inputs(rng, log2, scale=scale,
+                                                    dtype=dtype).items()}
+                      for log2 in (2, 3, 4, 5)}
+            got = itransform.batch_residual_grouped(groups)
+            want = itransform.batch_residual_grouped_ref(groups)
             torch.cuda.synchronize()
-            require(torch.equal(got, want), f"itransform log2={log2} "
-                    f"scale_m={scale} differs from its plain version")
-            errs["itransform"] = max(errs["itransform"],
-                                     int((got - want).abs().max()))
-    log("itransform == plain: log2 2..5, with/without scale_m, "
-        "DST/tskip/bypass, qp 0..51, levels to +-2^15, n=150")
-    for block, taps in ((16, 8), (8, 8), (4, 8), (8, 4), (4, 4), (2, 4)):
-        H, W = (1080, 1920) if taps == 8 else (540, 960)
-        n, R = 4096, 3
-        refs = torch.from_numpy(rng.integers(0, 256, (R, H, W)).astype(
-            np.uint8)).to(dev)
-        pos = np.stack([rng.integers(0, (H - block) // block + 1, n) * block,
-                        rng.integers(0, (W - block) // block + 1, n) * block],
-                       1)
-        pos[:64] = [[0, 0], [H - block, W - block]] * 32   # picture corners
-        unit = 4 if taps == 8 else 8                     # MV units per pel
-        mv = rng.integers(-300 * unit, 300 * unit, (n, 2))  # +-300 px
-        ridx = rng.integers(0, R, n)
-        args = [torch.from_numpy(a.astype(np.int32)).to(dev)
-                for a in (pos, ridx, mv)]
-        got = mc.mc_blocks(refs, *args, block, taps)
-        want = mc.mc_blocks_ref(refs, *args, block, taps)
+            errs["itransform"] = max(errs["itransform"], _max_err(
+                got, want, f"itransform scale_m={scale} {dtype.__name__}"))
+    log("itransform == plain: log2 2..5 in one launch, with/without "
+        "scale_m, int32 and int16 levels, DST/tskip/bypass, qp 0..51, "
+        "levels to +-2^15, n=150 each")
+    for far in (8, 300):
+        groups = _mc_groups(rng, dev, far)
+        got = mc.mc_blocks_grouped(groups)
+        want = mc.mc_blocks_grouped_ref(groups)
         torch.cuda.synchronize()
-        require(torch.equal(got, want),
-                f"mc block={block} taps={taps} differs from its plain version")
-        errs["mc"] = max(errs["mc"], int((got - want).abs().max()))
-    log("mc == plain: 6 block/taps geometries, n=4096 each, MVs up to "
-        "300 px beyond the picture")
+        errs["mc"] = max(errs["mc"], _max_err(got, want, f"mc far={far}"))
+    log("mc == plain: 6 geometries x 2 lists in one launch, n=4096 each, "
+        "MVs up to 8 px and up to 300 px beyond the picture")
 
 
-def _stream(structure: str, seed: int):
-    from p265_tpu.hls.params import PPS, SPS
-    from p265_tpu.testgen.encoder import Encoder, make_moving_sequence
-    sps = SPS(pic_width=96, pic_height=64, temporal_mvp_enabled=True,
-              num_reorder_pics=2, max_dec_pic_buffering=5)
-    pps = PPS(init_qp=32, sign_data_hiding=True)
-    frames = make_moving_sequence(96, 64, 5, seed=seed)
-    return Encoder(sps, pps, qp=32, seed=seed).encode_sequence(
-        frames, structure=structure)[0]
+def _stream_bytes(fn: str) -> bytes:
+    """A committed stream, checked against data/SHA256SUMS."""
+    with open(os.path.join(DATA, "SHA256SUMS")) as f:
+        sums = dict(reversed(line.split()) for line in f if line.strip())
+    with open(os.path.join(DATA, fn), "rb") as f:
+        data = f.read()
+    require(hashlib.sha256(data).hexdigest() == sums[fn],
+            f"{fn} does not match its sha256")
+    return data
 
 
 def _bit_exact(frames, gold, what: str) -> None:
@@ -167,10 +205,11 @@ def _bit_exact(frames, gold, what: str) -> None:
 
 
 def phase_small_streams() -> None:
-    from p265_tpu.golden.decoder import GoldenDecoder
+    from p265_tpu_torch.golden.decoder import GoldenDecoder
     from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
-    for structure, seed in (("LDP", 41), ("RA", 50)):
-        data = _stream(structure, seed)
+    for structure, fn in (("LDP", "s96x64_ldp5.265"),
+                          ("RA", "s96x64_ra5.265")):
+        data = _stream_bytes(fn)
         gold = GoldenDecoder().decode_stream(data)
         frames = PipelinedTorchDecoder("cuda").decode_stream(data)
         _bit_exact(frames, gold, f"96x64 {structure}")
@@ -189,14 +228,10 @@ def _stats(dec) -> str:
 
 def phase_1080() -> dict:
     import torch
-    from p265_tpu.golden.decoder import GoldenDecoder
+    from p265_tpu_torch.golden.decoder import GoldenDecoder
     from p265_tpu_torch.kernels import _build
     from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
-    require(os.path.exists(STREAM), f"{STREAM} is missing")
-    with open(STREAM, "rb") as f:
-        data = f.read()
-    require(hashlib.sha256(data).hexdigest() == STREAM_SHA256,
-            "s1080_ldp4.265 does not match its sha256")
+    data = _stream_bytes(os.path.basename(STREAM))
     t0 = time.perf_counter()
     gold = GoldenDecoder().decode_stream(data)
     log(f"golden NumPy decode: {time.perf_counter() - t0:.2f} s")
@@ -213,6 +248,9 @@ def phase_1080() -> dict:
     log(f"launches in the cold pass: {launches}")
     require(all(launches[k] > 0 for k in KERNELS),
             f"a kernel of the main path never launched: {launches}")
+    require(all(launches[k] == KERNELS[k][2] for k in KERNELS),
+            f"launches per pass {launches}, expected "
+            f"{ {k: v[2] for k, v in KERNELS.items()} }")
     require(all(f.planes[0].shape == (1080, 1920) for f in frames),
             "s1080_ldp4 frames are not 1920x1080")
     _bit_exact(frames, gold, "s1080_ldp4")
@@ -240,11 +278,12 @@ def phase_1080() -> dict:
 
 
 def _capture_main_path(data: bytes) -> dict:
-    """Record the arguments of every kernel-wrapper call of one pass."""
+    """Record the arguments of every grouped kernel call of one pass."""
     from p265_tpu_torch.kernels import itransform, mc
     from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
     calls = {"itransform": [], "mc": []}
-    orig = {"itransform": itransform.batch_residual, "mc": mc.mc_blocks}
+    orig = {"itransform": itransform.batch_residual_grouped,
+            "mc": mc.mc_blocks_grouped}
 
     def spy(name):
         def f(*a, **k):
@@ -252,12 +291,13 @@ def _capture_main_path(data: bytes) -> dict:
             return orig[name](*a, **k)
         return f
 
-    itransform.batch_residual, mc.mc_blocks = spy("itransform"), spy("mc")
+    itransform.batch_residual_grouped = spy("itransform")
+    mc.mc_blocks_grouped = spy("mc")
     try:
         PipelinedTorchDecoder("cuda").decode_stream(data)
     finally:
-        itransform.batch_residual, mc.mc_blocks = (orig["itransform"],
-                                                   orig["mc"])
+        itransform.batch_residual_grouped = orig["itransform"]
+        mc.mc_blocks_grouped = orig["mc"]
     return calls
 
 
@@ -281,37 +321,102 @@ def _time_calls(fn, calls, reps: int = 10) -> float:
     return statistics.median(out)
 
 
+def _device_ms(fn, calls, symbol: str, reps: int = 10):
+    """Device time (ms) of the kernel `symbol` over one run of every call,
+    from torch.profiler, averaged over reps runs; None if the profiler saw
+    no device time for it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for a, k in calls:
+                fn(*a, **k)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and symbol in e.key)
+    return us / 1e3 / reps if us else None
+
+
+def _work_mc(groups) -> tuple:
+    """(bytes, int32 multiply-adds) of one grouped MC call: each reference
+    stack read once, the block records read, the output written."""
+    stacks = {g[0].data_ptr(): g[0].numel() for g in groups}
+    nbytes, ops = sum(stacks.values()), 0
+    for refs, pos, ridx, mv, block, taps in groups:
+        n = pos.shape[0]
+        nbytes += n * (8 + 4 + 8) + 4 * n * block * block
+        ops += n * ((block + taps - 1) * block + block * block) * taps
+    return nbytes, ops
+
+
+def _work_itransform(groups) -> tuple:
+    """(bytes, int32 multiply-adds) of one grouped residual call: every
+    field the kernel reads, read once, and the output written; s^3
+    multiply-adds a TU in the even/odd form, 2 s^3 for a 4x4 DST TU."""
+    nbytes, ops = 0, 0
+    for log2, f in groups.items():
+        n, s = f["coeffs"].shape[0], 1 << log2
+        for k in ("coeffs", "qp", "tskip", "is_dst", "bypass", "scale_m"):
+            if f.get(k) is not None:
+                nbytes += f[k].numel() * f[k].element_size()
+        nbytes += 4 * n * s * s
+        n_dst = int(f["is_dst"].sum()) if (log2 == 2 and f.get("is_dst")
+                                           is not None) else 0
+        ops += (n + n_dst) * s ** 3
+    return nbytes, ops
+
+
 def phase_timing(launches: dict, errs: dict) -> list:
     import torch
     from p265_tpu_torch.kernels import itransform, mc
     with open(STREAM, "rb") as f:
         calls = _capture_main_path(f.read())
-    pairs = {"itransform": (itransform.batch_residual,
-                            itransform.batch_residual_ref),
-             "mc": (mc.mc_blocks, mc.mc_blocks_ref)}
+    pairs = {"itransform": (itransform.batch_residual_grouped,
+                            itransform.batch_residual_grouped_ref,
+                            _work_itransform, "itransform_grouped_kernel"),
+             "mc": (mc.mc_blocks_grouped, mc.mc_blocks_grouped_ref,
+                    _work_mc, "mc_grouped_kernel")}
     rows = []
-    for name, (kern, plain) in pairs.items():
-        cl = calls[name]
-        require(cl, f"no {name} calls captured")
+    for name, (kern, plain, work, symbol) in pairs.items():
+        # a call whose groups are all empty launches nothing
+        cl = [(a, k) for a, k in calls[name] if work(a[0])[0]]
+        require(len(cl) == KERNELS[name][2], f"{len(cl)} {name} launches "
+                f"in one pass, expected {KERNELS[name][2]}")
         for a, k in cl:
-            d = (kern(*a, **k) - plain(*a, **k)).abs()
-            errs[name] = max(errs[name], int(d.max()) if d.numel() else 0)
+            errs[name] = max(errs[name], _max_err(
+                kern(*a, **k), plain(*a, **k), f"{name} main-path call"))
         # turns: plain, kernel, kernel, plain
         p1 = _time_calls(plain, cl)
         k1 = _time_calls(kern, cl)
         k2 = _time_calls(kern, cl)
         p2 = _time_calls(plain, cl)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        shapes = sorted({tuple(a[0].shape) if name == "itransform"
-                         else (tuple(a[1].shape)[0], a[4], a[5])
-                         for a, _ in cl})
-        log(f"{name}: {len(cl)} calls per s1080_ldp4 pass; kernel {k1:.4f}/"
-            f"{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms; shapes {shapes}")
-        require(errs[name] == 0, f"{name} differs from its plain version")
-        src, rep = KERNELS[name]
+        dev_ms = _device_ms(kern, cl, symbol)
+        t_bytes = t_ops = bound_ms = 0.0
+        nbytes = ops = 0
+        for a, _ in cl:
+            b, o = work(a[0])
+            nbytes, ops = nbytes + b, ops + o
+            t_bytes += b / PEAK_BYTES * 1e3
+            t_ops += o / PEAK_INT32 * 1e3
+            bound_ms += max(b / PEAK_BYTES, o / PEAK_INT32) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"{name}: {len(cl)} grouped calls per s1080_ldp4 pass; kernel "
+            f"{k1:.4f}/{k2:.4f} ms (device time {dev_ms} ms), plain "
+            f"{p1:.4f}/{p2:.4f} ms; {nbytes} "
+            f"bytes ({t_bytes:.4f} ms), {ops} int32 multiply-adds "
+            f"({t_ops:.4f} ms); bound {bound_ms:.4f} ms by {bound_by}, "
+            f"kernel at {ms / bound_ms:.1f}x its bound")
+        src, rep, _ = KERNELS[name]
         rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
-                         launches=launches[name], max_abs_err=errs[name],
-                         ms=ms, plain_ms=plain_ms))
+                         launches=launches[name],
+                         launches_per_pass=len(cl),
+                         max_abs_err=errs[name], ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_us=bound_ms * 1e3,
+                         bound_by=bound_by, library_ms=None))
     torch.cuda.synchronize()
     return rows
 
@@ -326,6 +431,9 @@ def main() -> int:
     launches = phase_1080()
     rows = phase_timing(launches, errs)
     require("jax" not in sys.modules, "jax was imported")
+    ref = sorted(m for m in sys.modules
+                 if m == "p265_tpu" or m.startswith("p265_tpu."))
+    require(not ref, f"modules of the JAX package were imported: {ref}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

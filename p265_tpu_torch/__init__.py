@@ -1,12 +1,13 @@
 """p265_tpu_torch: the HEVC decoder's reconstruction path in PyTorch + CUDA.
 
-The counterpart of `p265_tpu`'s device side.  Stage A (bitstream parse,
-DPB, motion replay, tensor plans) is shared with `p265_tpu` through its
-JAX-free host modules (`hls`, `entropy`, `native`, `syntax`, `golden`,
-`plan`, `dpb`, `tables`, `testgen`, `yuv`); Stage B (MC, residuals, the
-intra wavefront scan, deblocking, SAO) runs here on torch tensors.  The two
-Pallas kernels of the JAX package are hand-written CUDA for Hopper
-(`csrc/`), built with nvcc at first use.
+The counterpart of `p265_tpu`.  Stage A (bitstream parse, DPB, motion
+replay, tensor plans) is this package's own copy of the JAX package's host
+modules (`hls`, `entropy`, `native`, `syntax`, `golden`, `plan`, `dpb`,
+`tables`, `yuv`), held against the originals by the tests; Stage B (MC,
+residuals, the intra wavefront scan, deblocking, SAO) runs here on torch
+tensors.  The two Pallas kernels of the JAX package are hand-written CUDA
+for Hopper (`csrc/`), built with nvcc at first use.
 
-Every function takes an explicit `device`; nothing here imports JAX.
+Every function takes an explicit `device`; nothing here imports JAX or the
+JAX package `p265_tpu`.
 """

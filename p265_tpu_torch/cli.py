@@ -15,7 +15,7 @@ import numpy as np
 
 
 def _cmd_decode(args) -> int:
-    from p265_tpu import yuv
+    from p265_tpu_torch import yuv
     from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
     dec = PipelinedTorchDecoder(args.device)
     with open(args.input, "rb") as f:

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (`p265_tpu_torch/csrc/*.cu`).
 
-nvcc compiles every source into one shared library with a plain C
-interface, loaded with ctypes.  The library is named by a hash of the
-sources and flags and lives in `p265_tpu_torch/build/`, so a changed source
-rebuilds and an unchanged one loads at once.  The build runs at the first
+nvcc compiles every source at once, one process per source, and links the
+objects into one shared library with a plain C interface, loaded with
+ctypes.  The library is named by a hash of the sources and flags and lives
+in `p265_tpu_torch/build/`, so a changed source rebuilds and an unchanged
+one loads at once.  The build runs at the first
 kernel launch of a process, never at import: the CPU tests import every
 module on machines with no nvcc.  A missing nvcc or a failed build raises;
 nothing falls back.
@@ -32,16 +33,15 @@ BUILD_DIR = os.path.join(_PKG, "build")
 # sm_90a (not sm_90) keeps Hopper's wgmma/setmaxnreg available to later
 # kernels; -Xptxas -v reports registers, shared memory and spills per kernel.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # levels, qp, is_dst, tskip, bypass|NULL, scale_m|NULL, consts, out,
-    # n, log2, stream
-    "p265_itransform": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    # refs, R, H, W, pos, mv, ridx, filt, out, n, block, taps, stream
-    "p265_mc_blocks": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # host group table, n_groups, device tables, out, stream
+    "p265_itransform_grouped": [_P, _I, _P, _P, _P],
+    # host group table, n_groups, host luma / chroma filters, out, stream
+    "p265_mc_grouped": [_P, _I, _P, _P, _P, _P],
 }
 
 LAUNCHES = {"itransform": 0, "mc": 0}
@@ -83,13 +83,33 @@ def _build() -> tuple[str, str]:
         return so, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, logs = _nvcc(), []
+    objs = [f"{tmp}.{os.path.basename(p)}.o" for p in srcs]
+    jobs = [[nvcc, *NVCC_FLAGS, "-c", p, "-o", o] for p, o in zip(srcs, objs)]
+    jobs.append([nvcc, "-shared", "-o", tmp, *objs])   # the link, last
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in jobs[:-1]]
+    try:
+        for cmd, pr in procs:
+            out, _ = pr.communicate()
+            logs.append(out)
+            if pr.returncode != 0:
+                raise RuntimeError(f"nvcc failed (exit {pr.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+    finally:
+        for _, pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    r = subprocess.run(jobs[-1], capture_output=True, text=True)
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n"
-                           f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
+        raise RuntimeError(f"nvcc link failed (exit {r.returncode}):\n"
+                           f"{' '.join(jobs[-1])}\n{r.stdout}{r.stderr}")
     os.replace(tmp, so)
-    return so, r.stdout + r.stderr
+    for o in objs:
+        os.remove(o)
+    return so, "".join(logs) + r.stdout + r.stderr
 
 
 def library() -> ctypes.CDLL:

@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from p265_tpu.tables import INTRA_ANGLE, INV_ANGLE
+from p265_tpu_torch.tables import INTRA_ANGLE, INV_ANGLE
 
 _ANGLE = np.zeros(35, np.int64)
 _ANGLE[2:] = INTRA_ANGLE

@@ -2,7 +2,9 @@
 
 Counterpart of p265_tpu/kernels/itransform.py (`batch_residual_ref`, the
 plain version) and p265_tpu/kernels/pallas_itransform.py (the kernel:
-csrc/itransform.cu behind `batch_residual`).
+csrc/itransform.cu behind `batch_residual_grouped`, which computes the TUs
+of every size of one call site in one launch; `batch_residual` is its
+one-size call).
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import functools
 import numpy as np
 import torch
 
-from p265_tpu.tables import DCT, DST4, LEVEL_SCALE
+from p265_tpu_torch.tables import DCT, DST4, LEVEL_SCALE
 from p265_tpu_torch.kernels import _build
 
 BIT_DEPTH = 8
@@ -71,15 +73,19 @@ def _itx(d, m):
 
 def batch_residual_ref(levels, qp, is_dst, tskip, log2: int, bypass=None,
                        scale_m=None):
-    """Plain torch version: [n,s,s] int32 levels -> [n,s,s] int32 residual.
+    """Plain torch version: [n,s,s] levels -> [n,s,s] int32 residual.
 
-    qp [n] int32; is_dst, tskip, bypass [n] bool; scale_m [n,s,s] int32 or
-    None (flat 16).  is_dst and tskip only act at log2 == 2."""
+    levels int16 or int32 (widened here: int16 products would overflow);
+    qp [n] int32; is_dst (None: no DST), tskip, bypass [n] bool; scale_m
+    [n,s,s] int32 or None (flat 16).  is_dst and tskip only act at
+    log2 == 2."""
+    levels = levels.to(torch.int32)
     d = _dequant(levels, qp, log2, scale_m)
     dct, dst = _mats(log2, levels.device)
     res = _itx(d, dct)
     if log2 == 2:
-        res = torch.where(is_dst[:, None, None], _itx(d, dst), res)
+        if is_dst is not None:
+            res = torch.where(is_dst[:, None, None], _itx(d, dst), res)
         # transform skip: r = (d << 7 + off) >> shift2 on the flat dequant
         d_flat = _dequant(levels, qp, log2) if scale_m is not None else d
         ts = ((d_flat * 128 + (1 << (_SHIFT2 - 1))) >> _SHIFT2).clamp(
@@ -90,56 +96,89 @@ def batch_residual_ref(levels, qp, is_dst, tskip, log2: int, bypass=None,
     return res
 
 
+def batch_residual_grouped_ref(groups: dict) -> dict:
+    """Plain version of batch_residual_grouped: one batch_residual_ref call
+    per size."""
+    return {log2: batch_residual_ref(f["coeffs"], f["qp"], f.get("is_dst"),
+                                     f["tskip"], log2,
+                                     bypass=f.get("bypass"),
+                                     scale_m=f.get("scale_m"))
+            for log2, f in groups.items()}
+
+
 @functools.lru_cache(maxsize=None)
-def _consts(log2: int, device: torch.device) -> torch.Tensor:
-    """Kernel constants: [s*s DCT][16 DST (4x4) or zeros][6 levelScale]."""
-    n = 1 << log2
-    dst = np.asarray(DST4 if n == 4 else np.zeros((4, 4)))
-    flat = np.concatenate([np.asarray(DCT[n]).ravel(), dst.ravel(),
-                           np.asarray(LEVEL_SCALE)]).astype(np.int32)
+def _consts(device: torch.device) -> torch.Tensor:
+    """Kernel tables: [DCT 4x4][8x8][16x16][32x32][DST 4x4][levelScale]."""
+    flat = np.concatenate([np.asarray(DCT[n]).ravel() for n in (4, 8, 16, 32)]
+                          + [np.asarray(DST4).ravel(),
+                             np.asarray(LEVEL_SCALE)]).astype(np.int32)
     return torch.from_numpy(flat).to(device)
 
 
-def _check(t, name, dtype, shape, device):
-    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
-        raise ValueError(f"batch_residual: {name} must be {dtype} {shape} on "
-                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+def _check(t, name, dtypes, shape, device):
+    if (t.dtype not in dtypes or tuple(t.shape) != shape
+            or t.device != device):
+        raise ValueError(f"batch_residual: {name} must be {dtypes} {shape} "
+                         f"on {device}, got {t.dtype} {tuple(t.shape)} on "
                          f"{t.device}")
     return t.contiguous()
 
 
+def batch_residual_grouped(groups: dict) -> dict:
+    """Residuals of TUs of several sizes: {log2: fields} -> {log2: [n,s,s]
+    int32}, views of one flat buffer.
+
+    fields: coeffs [n,s,s] int16 or int32, qp [n] int32, tskip [n] bool,
+    and optionally is_dst and bypass [n] bool and scale_m [n,s,s] int32;
+    other keys are ignored.  Each size computes exactly batch_residual_ref.
+    A CPU tensor takes the plain version; CUDA tensors launch
+    csrc/itransform.cu once for all sizes."""
+    if not groups:
+        return {}
+    dev = next(iter(groups.values()))["coeffs"].device
+    if dev.type == "cpu":
+        return batch_residual_grouped_ref(groups)
+    if dev.type != "cuda":
+        raise ValueError(f"batch_residual: no kernel for {dev}")
+    i32, b8 = (torch.int32,), (torch.bool,)
+    table = np.zeros((len(groups), 10), np.int64)
+    alive, views, off = [], {}, 0
+    for row, (log2, f) in enumerate(groups.items()):
+        if log2 not in (2, 3, 4, 5):
+            raise ValueError(f"batch_residual: log2 {log2} not in 2..5")
+        n, s = f["coeffs"].shape[0], 1 << log2
+        lv = _check(f["coeffs"], "coeffs", (torch.int16, torch.int32),
+                    (n, s, s), dev)
+        ts = [_check(f["qp"], "qp", i32, (n,), dev),
+              _check(f["tskip"], "tskip", b8, (n,), dev)]
+        opt = [None if f.get(k) is None else _check(f[k], k, dt, shape, dev)
+               for k, dt, shape in (("is_dst", b8, (n,)),
+                                    ("bypass", b8, (n,)),
+                                    ("scale_m", i32, (n, s, s)))]
+        alive += [lv, *ts, *opt]
+        ptr = [0 if t is None else t.data_ptr() for t in opt]
+        table[row] = (lv.data_ptr(), ts[0].data_ptr(), ptr[0],
+                      ts[1].data_ptr(), ptr[1], ptr[2], off, n, log2,
+                      lv.dtype == torch.int32)
+        views[log2] = (off, n, s)
+        off += n * s * s
+    out = torch.empty(off, dtype=torch.int32, device=dev)
+    if off:
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            err = lib.p265_itransform_grouped(
+                table.ctypes.data, len(groups), _consts(dev).data_ptr(),
+                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "itransform")
+        _build.LAUNCHES["itransform"] += 1
+    return {log2: out[o:o + n * s * s].view(n, s, s)
+            for log2, (o, n, s) in views.items()}
+
+
 def batch_residual(levels, qp, is_dst, tskip, log2: int, bypass=None,
                    scale_m=None):
-    """Same contract as batch_residual_ref.  A CPU tensor takes the plain
-    version; a CUDA tensor launches csrc/itransform.cu."""
-    if levels.device.type == "cpu":
-        return batch_residual_ref(levels, qp, is_dst, tskip, log2,
-                                  bypass=bypass, scale_m=scale_m)
-    if levels.device.type != "cuda":
-        raise ValueError(f"batch_residual: no kernel for {levels.device}")
-    if log2 not in (2, 3, 4, 5):
-        raise ValueError(f"batch_residual: log2 {log2} not in 2..5")
-    n, s, dev = levels.shape[0], 1 << log2, levels.device
-    levels = _check(levels, "levels", torch.int32, (n, s, s), dev)
-    qp = _check(qp, "qp", torch.int32, (n,), dev)
-    is_dst = _check(is_dst, "is_dst", torch.bool, (n,), dev)
-    tskip = _check(tskip, "tskip", torch.bool, (n,), dev)
-    if bypass is not None:
-        bypass = _check(bypass, "bypass", torch.bool, (n,), dev)
-    if scale_m is not None:
-        scale_m = _check(scale_m, "scale_m", torch.int32, (n, s, s), dev)
-    out = torch.empty_like(levels)
-    if n == 0:
-        return out
-    lib = _build.library()
-    consts = _consts(log2, dev)
-    with torch.cuda.device(dev):
-        err = lib.p265_itransform(
-            levels.data_ptr(), qp.data_ptr(), is_dst.data_ptr(),
-            tskip.data_ptr(), None if bypass is None else bypass.data_ptr(),
-            None if scale_m is None else scale_m.data_ptr(),
-            consts.data_ptr(), out.data_ptr(), n, log2,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "itransform")
-    _build.LAUNCHES["itransform"] += 1
-    return out
+    """Same contract as batch_residual_ref: batch_residual_grouped with one
+    size."""
+    return batch_residual_grouped({log2: dict(
+        coeffs=levels, qp=qp, is_dst=is_dst, tskip=tskip, bypass=bypass,
+        scale_m=scale_m)})[log2]

@@ -2,7 +2,7 @@
 
 Counterpart of p265_tpu/kernels/loopfilter.py.  The host builds per-edge
 parameter grids (bS, beta, tc) and per-CTB SAO grids in NumPy (copies of
-the JAX module's host half, which cannot be imported where the port runs);
+the JAX module's host half: the port imports nothing of the JAX package);
 the device filters whole batches of planes with branch-free int32 torch.
 The horizontal deblocking pass is the vertical filter on the transposed
 planes.  The JAX package ran these as XLA, so they are plain torch.
@@ -12,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from p265_tpu.syntax.ctu import SAO_BAND, SAO_EDGE
-from p265_tpu.tables import BETA_TABLE, TC_TABLE, chroma_qp_from_luma
+from p265_tpu_torch.syntax.ctu import SAO_BAND, SAO_EDGE
+from p265_tpu_torch.tables import BETA_TABLE, TC_TABLE, chroma_qp_from_luma
 
 NO_REF = -(1 << 30)
 

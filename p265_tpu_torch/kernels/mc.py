@@ -4,8 +4,9 @@ the scatter into a prediction plane.  Bit-exact vs golden/inter.py.
 
 Counterpart of p265_tpu/kernels/mc.py (host packing copied, device side in
 torch) and, for the interpolation kernel, p265_tpu/kernels/pallas_mc.py
-(csrc/mc.cu behind `mc_blocks`).  The host copies are NumPy only: the JAX
-module they come from cannot be imported where the port runs.
+(csrc/mc.cu behind `mc_blocks_grouped`, which interpolates every block of
+a picture in one launch; `mc_blocks` is its one-group call).  The host
+copies are NumPy only: the port imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from p265_tpu.tables import CHROMA_FILTER, LUMA_FILTER
+from p265_tpu_torch.tables import CHROMA_FILTER, LUMA_FILTER
 from p265_tpu_torch.kernels import _build
 
 BIT_DEPTH = 8
@@ -78,7 +79,7 @@ def mc_arrays_padded(plan, poc_index: dict, pad_rows: dict):
     pad_rows {"y16": n, ...} gives each bucket's row count; the port passes
     mc_block_counts(plan), so nothing is padded.  Pad rows, where a count
     exceeds the blocks, sit at pos = (plane height, 0) and are dropped by
-    mc_pred_plane."""
+    mc_pred_planes."""
     pus = plan.pus
     npu = len(pus)
 
@@ -224,42 +225,78 @@ def mc_blocks_ref(refs, pos, ridx, mv, block: int, taps: int):
     return out >> 6
 
 
+def mc_blocks_grouped_ref(groups) -> list:
+    """Plain version of mc_blocks_grouped: one mc_blocks_ref call a group."""
+    return [mc_blocks_ref(*g) for g in groups]
+
+
+GEOMETRIES = ((16, 8), (8, 8), (4, 8), (8, 4), (4, 4), (2, 4))
+MAX_GROUPS = 32   # groups of one launch (csrc/mc.cu kMaxGroups)
+_LUMA = np.ascontiguousarray(LUMA_FILTER, np.int32)
+_CHROMA = np.ascontiguousarray(CHROMA_FILTER, np.int32)
+
+
+def _checked(t, name, dt, shape, dev):
+    if (t.dtype != dt or t.device != dev
+            or (shape is not None and tuple(t.shape) != shape)):
+        raise ValueError(f"mc_blocks: {name} must be {dt} {shape} on {dev}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.contiguous()
+
+
+def mc_blocks_grouped(groups) -> list:
+    """MC intermediates of several block groups: each group (refs, pos,
+    ridx, mv, block, taps) as mc_blocks_ref takes it -> one [n, block,
+    block] int32 view per group, cut from one flat buffer.
+
+    A CPU tensor takes the plain version; CUDA tensors launch csrc/mc.cu
+    once for all groups."""
+    groups = list(groups)
+    if not groups:
+        return []
+    dev = groups[0][0].device
+    if dev.type == "cpu":
+        return mc_blocks_grouped_ref(groups)
+    if dev.type != "cuda":
+        raise ValueError(f"mc_blocks: no kernel for {dev}")
+    if len(groups) > MAX_GROUPS:
+        raise ValueError(f"mc_blocks: {len(groups)} groups, at most "
+                         f"{MAX_GROUPS} in one launch")
+    table = np.zeros((len(groups), 12), np.int64)
+    alive, views, off = [], [], 0
+    for row, (refs, pos, ridx, mv, block, taps) in enumerate(groups):
+        n = pos.shape[0]
+        if (block, taps) not in GEOMETRIES or refs.dim() != 3 or min(
+                refs.shape) == 0:
+            raise ValueError(f"mc_blocks: bad refs {tuple(refs.shape)} or "
+                             f"geometry {(block, taps)}")
+        refs = _checked(refs, "refs", torch.uint8, None, dev)
+        pos = _checked(pos, "pos", torch.int32, (n, 2), dev)
+        ridx = _checked(ridx, "ridx", torch.int32, (n,), dev)
+        mv = _checked(mv, "mv", torch.int32, (n, 2), dev)
+        alive += [refs, pos, ridx, mv]
+        R, H, W = refs.shape
+        vec = W % 4 == 0 and refs.data_ptr() % 4 == 0
+        table[row] = (refs.data_ptr(), pos.data_ptr(), mv.data_ptr(),
+                      ridx.data_ptr(), off, R, H, W, n, block, taps, vec)
+        views.append((off, n, block))
+        off += n * block * block
+    out = torch.empty(off, dtype=torch.int32, device=dev)
+    if off:
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            err = lib.p265_mc_grouped(
+                table.ctypes.data, len(groups), _LUMA.ctypes.data,
+                _CHROMA.ctypes.data, out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "mc")
+        _build.LAUNCHES["mc"] += 1
+    return [out[o:o + n * b * b].view(n, b, b) for o, n, b in views]
+
+
 def mc_blocks(refs, pos, ridx, mv, block: int, taps: int):
-    """Same contract as mc_blocks_ref.  A CPU tensor takes the plain
-    version; a CUDA tensor launches csrc/mc.cu."""
-    if refs.device.type == "cpu":
-        return mc_blocks_ref(refs, pos, ridx, mv, block, taps)
-    if refs.device.type != "cuda":
-        raise ValueError(f"mc_blocks: no kernel for {refs.device}")
-    n, dev = pos.shape[0], refs.device
-    for name, t, dt, shape in (("refs", refs, torch.uint8, None),
-                               ("pos", pos, torch.int32, (n, 2)),
-                               ("ridx", ridx, torch.int32, (n,)),
-                               ("mv", mv, torch.int32, (n, 2))):
-        if (t.dtype != dt or t.device != dev
-                or (shape is not None and tuple(t.shape) != shape)):
-            raise ValueError(f"mc_blocks: {name} must be {dt} {shape} on "
-                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
-    if refs.dim() != 3 or (block, taps) not in (
-            (16, 8), (8, 8), (4, 8), (8, 4), (4, 4), (2, 4)):
-        raise ValueError(f"mc_blocks: bad refs {tuple(refs.shape)} or "
-                         f"geometry {(block, taps)}")
-    refs, pos, ridx, mv = (t.contiguous() for t in (refs, pos, ridx, mv))
-    out = torch.empty((n, block, block), dtype=torch.int32, device=dev)
-    if n == 0:
-        return out
-    R, H, W = refs.shape
-    lib = _build.library()
-    filt = _filters(taps, dev)
-    with torch.cuda.device(dev):
-        err = lib.p265_mc_blocks(
-            refs.data_ptr(), R, H, W, pos.data_ptr(), mv.data_ptr(),
-            ridx.data_ptr(), filt.data_ptr(), out.data_ptr(), n, block,
-            taps, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "mc")
-    _build.LAUNCHES["mc"] += 1
-    return out
+    """Same contract as mc_blocks_ref: mc_blocks_grouped with one group."""
+    return mc_blocks_grouped([(refs, pos, ridx, mv, block, taps)])[0]
 
 
 def combine(p0, p1, has_l1, w_params):
@@ -286,36 +323,51 @@ def combine(p0, p1, has_l1, w_params):
     return torch.where(has_l1[:, None, None], bi, uni)
 
 
-def mc_pred_plane(ref_planes, buckets, shape: tuple, taps: int,
-                  has_bi: bool, wp_key: str):
-    """One component's MC prediction plane [H, W] int32.
+def mc_pred_planes(stacks, arrays, shapes, has_bi: bool) -> list:
+    """One picture's MC prediction planes [H, W] int32 (y, cb, cr), with
+    the interpolation of every block of every plane and list in ONE
+    mc_blocks_grouped launch.
 
-    ref_planes [R,H,W] uint8 (device-resident DPB slabs); buckets {block:
-    fields} as mc_arrays_padded gives them, as tensors on the same device.
-    has_bi False skips the second list.  Pad blocks (pos = (H, 0)) scatter
-    into a one-sample guard past the plane that is cut off: torch has no
-    dropping scatter, and this keeps the scatter free of a host sync."""
-    H, W = shape
-    dev = ref_planes.device
-    idx_parts, val_parts = [], []
-    for block in sorted(buckets, reverse=True):
-        d = buckets[block]
-        pos = d["pos"]
-        if pos.shape[0] == 0:
-            continue
-        p0 = mc_blocks(ref_planes, pos, d["r0"], d["mv0"], block, taps)
-        p1 = (mc_blocks(ref_planes, pos, d["r1"], d["mv1"], block, taps)
-              if has_bi else None)
-        wp = tuple(d[wp_key][:, k] for k in range(5))
-        samp = combine(p0, p1, d["has1"], wp)
-        ar = torch.arange(block, device=dev)
-        flat = ((pos[:, 0, None, None] + ar[None, :, None]) * W
-                + pos[:, 1, None, None] + ar[None, None, :]).reshape(-1)
-        idx_parts.append(flat)
-        val_parts.append(samp.reshape(-1))
-    plane = torch.zeros(H * W + 1, dtype=torch.int32, device=dev)
-    if idx_parts:
-        idx = torch.cat(idx_parts).long()
-        idx = torch.where((idx >= 0) & (idx < H * W), idx, H * W)
-        plane[idx] = torch.cat(val_parts)
-    return plane[:H * W].reshape(H, W)
+    stacks (y, cb, cr) uint8 reference stacks [R,H,W] (device-resident DPB
+    slabs); arrays {"y": {block: fields}, "c": {...}} as mc_arrays_padded
+    gives them, as tensors on the same device; shapes the three plane
+    shapes.  has_bi False skips the second list.  Pad blocks (pos = (H,
+    0)) scatter into a one-sample guard past the plane that is cut off:
+    torch has no dropping scatter, and this keeps the scatter free of a
+    host sync."""
+    keys, groups = [], []
+    for c, stack in enumerate(stacks):
+        grp, taps = ("y", 8) if c == 0 else ("c", 4)
+        for block, d in arrays[grp].items():
+            if d["pos"].shape[0] == 0:
+                continue
+            for lx in ((0, 1) if has_bi else (0,)):
+                keys.append((c, block, lx))
+                groups.append((stack, d["pos"], d[f"r{lx}"], d[f"mv{lx}"],
+                               block, taps))
+    preds = dict(zip(keys, mc_blocks_grouped(groups)))
+    planes = []
+    for c, (H, W) in enumerate(shapes):
+        buckets = arrays["y" if c == 0 else "c"]
+        dev = stacks[c].device
+        idx_parts, val_parts = [], []
+        for block in sorted(buckets, reverse=True):
+            if (c, block, 0) not in preds:
+                continue
+            d = buckets[block]
+            pos = d["pos"]
+            wp = tuple(d[f"wp_{c}"][:, k] for k in range(5))
+            samp = combine(preds[c, block, 0], preds.get((c, block, 1)),
+                           d["has1"], wp)
+            ar = torch.arange(block, device=dev)
+            flat = ((pos[:, 0, None, None] + ar[None, :, None]) * W
+                    + pos[:, 1, None, None] + ar[None, None, :]).reshape(-1)
+            idx_parts.append(flat)
+            val_parts.append(samp.reshape(-1))
+        plane = torch.zeros(H * W + 1, dtype=torch.int32, device=dev)
+        if idx_parts:
+            idx = torch.cat(idx_parts).long()
+            idx = torch.where((idx >= 0) & (idx < H * W), idx, H * W)
+            plane[idx] = torch.cat(val_parts)
+        planes.append(plane[:H * W].reshape(H, W))
+    return planes

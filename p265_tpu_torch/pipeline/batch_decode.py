@@ -4,11 +4,13 @@ Counterpart of p265_tpu/pipeline/batch_decode.py.  `build_batch` (host,
 NumPy) packs the tensor plans into arrays; `decode_batch_planes` (device)
 reproduces `_decode_batch_jit` step for step:
 
-1. MC from device-resident uint8 reference slabs (kernels/mc.py);
+1. MC from device-resident uint8 reference slabs (kernels/mc.py), one
+   kernel launch per frame;
 2. the residuals of every inter TU ("hoisted" out of the scan: they have
-   no in-picture dependencies) with one scatter, then init = clip(pred +
-   residual);
-3. the residuals of the intra TUs, then the intra wavefront scan;
+   no in-picture dependencies), one kernel launch for all TU sizes, with
+   one scatter, then init = clip(pred + residual);
+3. the residuals of the intra TUs (one launch), then the intra wavefront
+   scan;
 4. deblocking, vertical then horizontal (the vertical filter on the
    transposed planes);
 5. SAO;
@@ -26,12 +28,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from p265_tpu.golden.decoder import bypass_pixel_masks
+from p265_tpu_torch.golden.decoder import bypass_pixel_masks
 from p265_tpu_torch.kernels import itransform
 from p265_tpu_torch.kernels.loopfilter import (
     chroma_edge_params, deblock_chroma_vertical, deblock_luma_vertical,
     luma_edge_params, sao_apply, sao_maps)
-from p265_tpu_torch.kernels.mc import mc_pred_plane
+from p265_tpu_torch.kernels.mc import mc_pred_planes
 from p265_tpu_torch.pipeline.wavefront import (
     GUARD, expand, merge_segments, scan_plane, stack_plane)
 
@@ -155,22 +157,20 @@ def decode_batch_planes(batch: dict, refs, device):
     i32 = torch.int32
     fp = _upload(batch["fp"], device)
 
-    # 1. MC prediction planes at each frame's segment offsets
+    # 1. MC prediction planes at each frame's segment offsets, one grouped
+    #    MC launch per frame; has_bi comes from the host arrays, so no sync
     pred = None
     if batch["mc"] is not None:
         pred = torch.zeros((total_h + GUARD, pw), dtype=i32, device=device)
+        shapes = ((H, W), (Hc, Wc), (Hc, Wc))
         for f, (fmc, rf) in enumerate(zip(batch["mc"], refs)):
-            g = _upload(fmc, device)
             has_bi = any(bool(a["has1"].any()) for grp in fmc.values()
                          for a in grp.values())
-            o1 = F * seg_h + f * seg_hc
-            o2 = F * seg_h + (F + f) * seg_hc
-            for grp, stack, wp_key, oy, shape, taps in (
-                    ("y", rf[0], "wp_0", f * seg_h, (H, W), 8),
-                    ("c", rf[1], "wp_1", o1, (Hc, Wc), 4),
-                    ("c", rf[2], "wp_2", o2, (Hc, Wc), 4)):
-                pred[oy:oy + shape[0], :shape[1]] = mc_pred_plane(
-                    stack, g[grp], shape, taps, has_bi, wp_key)
+            planes = mc_pred_planes(rf, _upload(fmc, device), shapes, has_bi)
+            offs = (f * seg_h, F * seg_h + f * seg_hc,
+                    F * seg_h + (F + f) * seg_hc)
+            for oy, (h, w), p in zip(offs, shapes, planes):
+                pred[oy:oy + h, :w] = p
 
     # 2. hoisted inter TUs: one scatter of their residuals, then
     #    init = clip(pred + residual); intra regions get garbage that the
@@ -178,18 +178,15 @@ def decode_batch_planes(batch: dict, refs, device):
     plane = torch.zeros((total_h + GUARD, pw), dtype=i32, device=device)
     if batch["itu"] is not None:
         res_plane = torch.zeros_like(plane).view(-1)
+        itu = _upload(batch["itu"], device)
+        res = itransform.batch_residual_grouped(itu)   # all sizes, 1 launch
         idx, val = [], []
-        for log2, d in _upload(batch["itu"], device).items():
-            n, s = d["qp"].shape[0], 1 << log2
-            res = itransform.batch_residual(
-                d["coeffs"].to(i32), d["qp"],
-                torch.zeros(n, dtype=torch.bool, device=device), d["tskip"],
-                log2, bypass=d["bypass"], scale_m=d.get("scale_m"))
-            ar = torch.arange(s, device=device)
+        for log2, d in itu.items():
+            ar = torch.arange(1 << log2, device=device)
             idx.append(((d["pos"][:, 0, None, None] + ar[None, :, None]) * pw
                         + d["pos"][:, 1, None, None]
                         + ar[None, None, :]).reshape(-1))
-            val.append(res.reshape(-1))
+            val.append(res[log2].reshape(-1))
         res_plane[torch.cat(idx)] = torch.cat(val)
         base = pred if pred is not None else plane
         plane = (base + res_plane.view(plane.shape)).clamp(0, 255)

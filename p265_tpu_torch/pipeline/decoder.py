@@ -14,8 +14,8 @@ import time
 import numpy as np
 import torch
 
-from p265_tpu.golden.decoder import DecoderBase
-from p265_tpu.plan.frame_plan import build_tensor_plan
+from p265_tpu_torch.golden.decoder import DecoderBase
+from p265_tpu_torch.plan.frame_plan import build_tensor_plan
 from p265_tpu_torch.kernels.mc import mc_arrays_padded, mc_block_counts
 from p265_tpu_torch.pipeline.batch_decode import (build_batch,
                                                   decode_batch_planes)

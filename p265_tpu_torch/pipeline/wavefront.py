@@ -10,15 +10,15 @@ samples it predicts from): the TUs of one step are independent.
 Shapes are exact.  The JAX package padded them to a power-of-two ladder so
 XLA would not recompile; eager torch has no compile to protect, so each
 step works on exactly its own TUs (a slice of the step-ordered arrays) and
-no pad lanes exist.  Host halves are NumPy copies (the JAX module cannot be
-imported where the port runs).
+no pad lanes exist.  Host halves are NumPy copies (the port imports
+nothing of the JAX package).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from p265_tpu.plan.frame_plan import PlanePlan, TuBatch
+from p265_tpu_torch.plan.frame_plan import PlanePlan, TuBatch
 from p265_tpu_torch.kernels import intra
 from p265_tpu_torch.kernels import itransform
 
@@ -126,12 +126,10 @@ def expand(tu: dict, pw: int) -> dict:
     Returns {log2: dict(ref_idx, ref_ok, mode, filter_flag, strong_allowed,
     dc_edge, out_idx [n, s*s], residual [n, s, s])}."""
     out = {}
+    res = itransform.batch_residual_grouped(tu)   # all sizes, one launch
     for log2, d in tu.items():
         s = 1 << log2
         dev = d["pos"].device
-        res = itransform.batch_residual(
-            d["coeffs"].to(torch.int32), d["qp"], d["is_dst"], d["tskip"],
-            log2, bypass=d["bypass"], scale_m=d.get("scale_m"))
         ar = torch.arange(s, device=dev)
         oi = ((d["pos"][:, 0, None, None] + ar[None, :, None]) * pw
               + d["pos"][:, 1, None, None] + ar[None, None, :])
@@ -139,7 +137,7 @@ def expand(tu: dict, pw: int) -> dict:
             ref_idx=d["ref_ys"] * pw + d["ref_xs"], ref_ok=d["ref_ok"],
             mode=d["mode"], filter_flag=d["filter_flag"],
             strong_allowed=d["strong_allowed"], dc_edge=d["dc_edge"],
-            out_idx=oi.reshape(-1, s * s), residual=res)
+            out_idx=oi.reshape(-1, s * s), residual=res[log2])
     return out
 
 

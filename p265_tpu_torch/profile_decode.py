@@ -45,7 +45,7 @@ def _stage_table(data: bytes) -> None:
               (dm, "mc_arrays_padded", "MC pack"),
               (dm, "build_batch", "batch pack"),
               (bd, "_upload", "upload"),
-              (bd, "mc_pred_plane", "MC"),
+              (bd, "mc_pred_planes", "MC"),
               (bd, "expand", "intra residual"),
               (bd, "scan_plane", "scan"),
               (bd, "deblock_luma_vertical", "deblock"),

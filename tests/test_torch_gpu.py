@@ -1,9 +1,10 @@
 """CUDA kernels of the port against their plain torch versions, on the card.
 
 These tests need a CUDA device (and nvcc to build csrc/*.cu); without one
-each test skips.  Run them on a machine with a card:
+each test skips.  Run them on a machine with a card (the conftest imports
+JAX, which the port does not need):
 
-    python -m pytest tests/test_torch_gpu.py -q
+    python -m pytest tests/test_torch_gpu.py -q --noconftest
 
 The decision is taken inside the fixture, never at import, so that every
 test process collects the same tests.
@@ -69,6 +70,72 @@ def test_mc_kernel_matches_plain(cuda, block, taps):
     want = mc.mc_blocks_ref(refs, *args, block, taps)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _mc_group(rng, refs, block, taps, n, far):
+    R, H, W = refs.shape
+    unit = 4 if taps == 8 else 8
+    pos = np.stack([rng.integers(0, H // block, n) * block,
+                    rng.integers(0, W // block, n) * block], 1)
+    mv = rng.integers(-far * unit, far * unit, (n, 2))
+    return (refs, *[torch.from_numpy(a.astype(np.int32)).to(refs.device)
+                    for a in (pos, rng.integers(0, R, n), mv)], block, taps)
+
+
+@pytest.mark.parametrize("far", [3, 300])
+def test_mc_grouped_kernel_matches_plain(cuda, far):
+    """One launch for every geometry, both lists and an empty group, on
+    planes whose width allows word loads (luma 200, chroma 100) and on
+    planes that do not (a width of 98, and a stack that starts one byte
+    into its storage); MVs of a few pixels keep most windows inside the
+    picture, MVs to 300 px put most outside."""
+    rng = np.random.default_rng(far)
+    u8 = lambda *shape: torch.from_numpy(rng.integers(  # noqa: E731
+        0, 256, shape).astype(np.uint8)).to(cuda)
+    luma, chroma = u8(3, 120, 200), u8(3, 60, 100)
+    odd = u8(2 * 60 * 98 + 1)[1:].view(2, 60, 98)
+    groups = []
+    for block, taps in mc.GEOMETRIES:
+        for refs in ((luma,) if taps == 8 else (chroma, odd)):
+            for lx in range(2):
+                n = 0 if (block, lx) == (8, 1) else 700
+                groups.append(_mc_group(rng, refs, block, taps, n, far))
+    before = _build.LAUNCHES["mc"]
+    got = mc.mc_blocks_grouped(groups)
+    assert _build.LAUNCHES["mc"] == before + 1
+    want = mc.mc_blocks_grouped_ref(groups)
+    torch.cuda.synchronize()
+    for g, w, grp in zip(got, want, groups):
+        assert torch.equal(g, w), grp[4:]
+
+
+def test_itransform_grouped_kernel_matches_plain(cuda):
+    """All four sizes in one launch, int16 and int32 levels, with and
+    without is_dst, bypass and scale_m."""
+    rng = np.random.default_rng(99)
+    groups = {}
+    for log2, dt, opt in ((2, np.int16, True), (3, np.int32, False),
+                          (4, np.int16, True), (5, np.int16, False)):
+        s, n = 1 << log2, 200
+        lv = ((rng.random((n, s, s)) < 0.3)
+              * rng.integers(-300, 300, (n, s, s))).astype(dt)
+        lv[:8] = rng.integers(-32768, 32768, (8, s, s))
+        t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+        f = dict(coeffs=t(lv), qp=t(np.arange(n, dtype=np.int32) % 52),
+                 tskip=t(rng.random(n) < 0.3))
+        if opt:
+            f.update(is_dst=t(rng.random(n) < 0.4),
+                     bypass=t(rng.random(n) < 0.1),
+                     scale_m=t(rng.integers(1, 256, (n, s, s)).astype(
+                         np.int32)))
+        groups[log2] = f
+    before = _build.LAUNCHES["itransform"]
+    got = itransform.batch_residual_grouped(groups)
+    assert _build.LAUNCHES["itransform"] == before + 1
+    want = itransform.batch_residual_grouped_ref(groups)
+    torch.cuda.synchronize()
+    for log2 in groups:
+        assert torch.equal(got[log2], want[log2]), log2
 
 
 def _gop(structure, seed, n=4, w=96, h=64, **pps_kw):

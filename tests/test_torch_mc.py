@@ -1,10 +1,11 @@
 """Port's motion compensation vs the JAX reference, bit-exact.
 
-Interpolation (mc_blocks_ref, and the CPU path of mc_blocks) against
-p265_tpu.kernels.mc._mc_blocks on its per-element clamped gather, the
-uni/bi/weighted combination against _combine, the prediction plane
-(with pad rows) against mc_pred_plane, and the NumPy copies of the host
-packing against the originals on a weighted RA plan.
+Interpolation (mc_blocks_ref, and the CPU paths of mc_blocks and of the
+grouped mc_blocks_grouped) against p265_tpu.kernels.mc._mc_blocks on its
+per-element clamped gather, the uni/bi/weighted combination against
+_combine, the prediction planes (with pad rows) against mc_pred_plane, and
+the NumPy copies of the host packing against the originals on a weighted
+RA plan.
 """
 import jax
 import jax.numpy as jnp
@@ -123,7 +124,8 @@ def test_mc_pred_plane_matches_jax_with_pad_rows(ra_wp):
     by_poc = {g.poc: g.planes for g in gold}
     jax_plane = jax.jit(jmc.mc_pred_plane,
                         static_argnames=("shape", "taps", "has_bi", "wp_key"))
-    # the B picture with the most bi-predicted PUs, all three planes
+    # the B picture with the most bi-predicted PUs, all three planes from
+    # one mc_pred_planes call
     g = max(inter, key=lambda g: sum(p.motion.uses(0) and p.motion.uses(1)
                                      for p in g.plan.pus))
     plan = g.plan
@@ -135,18 +137,74 @@ def test_mc_pred_plane_matches_jax_with_pad_rows(ra_wp):
     has_bi = any(p.motion.uses(0) and p.motion.uses(1)
                  for p in plan.pus)
     H, W = plan.sps.pic_height, plan.sps.pic_width
-    for c, grp, taps, shape in ((0, "y", 8, (H, W)),
-                                (1, "c", 4, (H >> 1, W >> 1)),
-                                (2, "c", 4, (H >> 1, W >> 1))):
-        stack = np.stack([by_poc[p][c] for p in pocs]).astype(np.uint8)
-        key = f"wp_{c}"
+    shapes = ((H, W), (H >> 1, W >> 1), (H >> 1, W >> 1))
+    stacks = [np.stack([by_poc[p][c] for p in pocs]).astype(np.uint8)
+              for c in range(3)]
+    got = mc.mc_pred_planes(
+        [torch.from_numpy(s) for s in stacks],
+        {grp: {b: {f: torch.from_numpy(a) for f, a in d.items()}
+               for b, d in arrs[grp].items()} for grp in arrs},
+        shapes, has_bi)
+    for c, grp, taps in ((0, "y", 8), (1, "c", 4), (2, "c", 4)):
         want = np.asarray(jax_plane(
-            jnp.asarray(stack),
+            jnp.asarray(stacks[c]),
             {b: {f: jnp.asarray(a) for f, a in d.items()}
-             for b, d in arrs[grp].items()}, shape=shape, taps=taps,
-            has_bi=has_bi, wp_key=key))
-        got = mc.mc_pred_plane(
-            torch.from_numpy(stack),
-            {b: {f: torch.from_numpy(a) for f, a in d.items()}
-             for b, d in arrs[grp].items()}, shape, taps, has_bi, key)
-        assert np.array_equal(got.numpy(), want), (g.poc, c)
+             for b, d in arrs[grp].items()}, shape=shapes[c], taps=taps,
+            has_bi=has_bi, wp_key=f"wp_{c}"))
+        assert np.array_equal(got[c].numpy(), want), (g.poc, c)
+
+
+def _group_inputs(rng, block, taps, n, refs, far=200):
+    R, H, W = refs.shape
+    pos = np.stack([rng.integers(0, H // block, n) * block,
+                    rng.integers(0, W // block, n) * block], 1)
+    unit = 4 if taps == 8 else 8
+    mv = rng.integers(-far * unit, far * unit, (n, 2))
+    ridx = rng.integers(0, R, n)
+    return [torch.from_numpy(a.astype(np.int32)) for a in (pos, ridx, mv)]
+
+
+def test_mc_blocks_grouped_equals_per_call_plain():
+    """Mixed geometries on two reference stacks (luma- and chroma-sized),
+    an empty group and second-list groups, as one mc_pred_planes call packs
+    them: the grouped plain path equals one mc_blocks_ref call per group,
+    and JAX's _mc_blocks."""
+    rng = np.random.default_rng(7)
+    luma = torch.from_numpy(rng.integers(0, 256, (2, 64, 96)).astype(
+        np.uint8))
+    chroma = torch.from_numpy(rng.integers(0, 256, (2, 32, 48)).astype(
+        np.uint8))
+    groups = []
+    for block, taps in GEOMETRIES:
+        refs = luma if taps == 8 else chroma
+        for lx in range(2):   # list 0 and the bi-pred second list
+            n = 0 if (block, lx) == (4, 1) else int(rng.integers(1, 40))
+            groups.append((refs, *_group_inputs(rng, block, taps, n, refs),
+                           block, taps))
+    got = mc.mc_blocks_grouped(groups)
+    assert len(got) == len(groups)
+    for (refs, pos, ridx, mv, block, taps), g in zip(groups, got):
+        n = pos.shape[0]
+        assert g.dtype == torch.int32 and g.shape == (n, block, block)
+        assert torch.equal(g, mc.mc_blocks_ref(refs, pos, ridx, mv, block,
+                                               taps))
+        if n:
+            filt = np.asarray(LUMA_FILTER if taps == 8 else CHROMA_FILTER,
+                              np.int32)
+            fm = 3 if taps == 8 else 7
+            m = mv.numpy()
+            ff = np.stack([filt[m[:, 0] & fm], filt[m[:, 1] & fm]], 1)
+            want = np.asarray(jmc._mc_blocks(
+                jnp.asarray(refs.numpy().astype(np.int32)),
+                jnp.asarray(pos.numpy()), jnp.asarray(ridx.numpy()),
+                jnp.asarray(m), jnp.asarray(ff), block, taps,
+                refs.shape[0]))
+            assert np.array_equal(g.numpy(), want), (block, taps)
+    assert mc.mc_blocks_grouped([]) == []
+
+
+def test_mc_blocks_grouped_refuses_devices_without_a_kernel():
+    refs = torch.zeros((1, 16, 16), dtype=torch.uint8, device="meta")
+    z = torch.zeros((4, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        mc.mc_blocks_grouped([(refs, z, z[:, 0], z, 4, 8)])

@@ -1,10 +1,12 @@
-"""The port must run where JAX is not installed.
+"""The port must run where JAX is not installed, on its own.
 
-A fresh interpreter imports every p265_tpu_torch module and decodes a tiny
-stream on CPU tensors; jax, jaxlib and ml_dtypes must stay out of
-sys.modules (on the GPU machine any of them would be an import crash).
-Also: no source line of the package imports them, and chip_smoke.py exits
-nonzero with no result line when no CUDA device is present.
+A fresh interpreter imports every p265_tpu_torch module and decodes the
+committed 96x64 LDP stream on CPU tensors against the port's own golden
+decoder; jax, jaxlib and ml_dtypes (on the GPU machine any of them would be
+an import crash) and every module of the JAX package p265_tpu must stay out
+of sys.modules.  Also: no source line of the package or of chip_smoke.py
+imports them, and chip_smoke.py exits nonzero with no result line when no
+CUDA device is present or when it stands alone, without the repo.
 """
 import os
 import re
@@ -25,23 +27,30 @@ mods = [m.name for m in pkgutil.walk_packages(p265_tpu_torch.__path__,
                                               "p265_tpu_torch.")]
 for name in mods:
     importlib.import_module(name)
-from p265_tpu.golden.decoder import GoldenDecoder
-from p265_tpu.hls.params import PPS, SPS
-from p265_tpu.testgen.encoder import Encoder, make_moving_sequence
+from p265_tpu_torch.golden.decoder import GoldenDecoder
 from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
-sps = SPS(pic_width=64, pic_height=32)
-pps = PPS(init_qp=32)
-data = Encoder(sps, pps, qp=32, seed=1).encode_sequence(
-    make_moving_sequence(64, 32, 2, seed=1))[0]
+with open("p265_tpu_torch/data/s96x64_ldp5.265", "rb") as f:
+    data = f.read()
 gold = GoldenDecoder().decode_stream(data)
 got = PipelinedTorchDecoder("cpu").decode_stream(data)
-assert len(got) == len(gold) == 2
+assert len(got) == len(gold) == 5
 for f, g in zip(got, gold):
     for c in range(3):
         assert np.array_equal(f.planes[c], g.planes[c])
 bad = sorted(m for m in ("jax", "jaxlib", "ml_dtypes") if m in sys.modules)
-print("MODULES", len(mods), "JAX", ",".join(bad) or "none")
+ref = sorted(m for m in sys.modules
+             if m == "p265_tpu" or m.startswith("p265_tpu."))
+print("MODULES", len(mods), "REF", ",".join(ref) or "none",
+      "JAX", ",".join(bad) or "none")
 """
+
+
+def _py_sources():
+    for dirpath, _, files in os.walk(PKG):
+        for fn in files:
+            if fn.endswith(".py"):
+                yield os.path.join(dirpath, fn)
+    yield os.path.join(ROOT, "chip_smoke.py")
 
 
 def test_port_imports_and_decodes_without_jax():
@@ -50,21 +59,41 @@ def test_port_imports_and_decodes_without_jax():
     assert r.returncode == 0, r.stderr
     line = r.stdout.strip().splitlines()[-1]
     n_mods = int(line.split()[1])
-    assert n_mods >= 10, line
+    assert n_mods >= 30, line
+    assert " REF none " in line, line
     assert line.endswith("JAX none"), line
 
 
 def test_no_source_line_imports_jax():
     pat = re.compile(r"^\s*(import|from) (jax|jaxlib|ml_dtypes)\b")
     hits = []
-    for dirpath, _, files in os.walk(PKG):
-        for fn in files:
-            if fn.endswith(".py"):
-                path = os.path.join(dirpath, fn)
-                with open(path) as f:
-                    hits += [f"{path}:{i}" for i, ln in enumerate(f, 1)
-                             if pat.match(ln)]
+    for path in _py_sources():
+        with open(path) as f:
+            hits += [f"{path}:{i}" for i, ln in enumerate(f, 1)
+                     if pat.match(ln)]
     assert not hits, hits
+
+
+def test_no_source_line_imports_the_jax_package():
+    pat = re.compile(r"^\s*(from|import) p265_tpu(\.|\s|$)")
+    hits = []
+    for path in _py_sources():
+        with open(path) as f:
+            hits += [f"{path}:{i}" for i, ln in enumerate(f, 1)
+                     if pat.match(ln)]
+    assert not hits, hits
+
+
+def test_chip_smoke_alone_refuses(tmp_path):
+    """chip_smoke.py in a directory that holds nothing else of the repo
+    must fail and print no result line, card or no card."""
+    alone = tmp_path / "chip_smoke.py"
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        alone.write_text(f.read())
+    r = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
 
 
 def test_chip_smoke_refuses_without_cuda():
