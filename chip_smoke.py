@@ -12,13 +12,24 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
 3. kernels vs plain: each grouped kernel against its plain torch version on
    the card, torch.equal, over sweeps of sizes, modes and MVs (to 300 px
    outside the picture), each sweep packed as one multi-group launch.
-4. small streams: the committed 96x64 LDP and RA (bi-pred) streams,
-   PipelinedTorchDecoder on cuda vs the port's GoldenDecoder, bit-exact.
+4. small streams: the committed 96x64 LDP, RA (bi-pred) and PCM LDP
+   streams (PCM CUs in the I picture and in every P picture, whose MC runs
+   through K2), PipelinedTorchDecoder on cuda vs the port's GoldenDecoder,
+   bit-exact.
 5. s1080_ldp4 (1920x1080, IDR + 3 P, QP 32; p265_tpu_torch/data): one
    cold pass bit-exact against GoldenDecoder on every plane, with the
    kernel launch counters reset just before it (3 MC and 7 residual
    launches a pass); then 3 warm passes.
-6. per-kernel time against the plain version and the bound, over every
+6. sharded: one process a rank (NCCL with one rank a card where there are
+   two cards or more, else two ranks sharing cuda:0 over gloo).  The space
+   axis decodes every picture of s1080_ldp4 row-sharded over the ranks
+   (SpatialDecoder), each picture's planes before and after the filters
+   equal to phase 5's golden ones on every rank; the stream axis decodes
+   the three small streams and s1080_ldp4, split over the ranks, through
+   decode_segments_production, bit-exact.  Per rank: the wall time,
+   collectives and bytes of each picture, and the K1/K2 launches (counters
+   reset just before each axis), which must both be above 0.
+7. per-kernel time against the plain version and the bound, over every
    call the main path made on one pass of s1080_ldp4: the CUDA-event
    window of the calls (`ms`, host launch gaps included) and the kernel's
    own device time from torch.profiler (`device_ms`).
@@ -35,6 +46,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -43,6 +55,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "p265_tpu_torch", "data")
 STREAM = os.path.join(DATA, "s1080_ldp4.265")
 N_FRAMES = 4
+SMALL = (("LDP", "s96x64_ldp5.265"), ("RA", "s96x64_ra5.265"),
+         ("PCM LDP", "s96x64_pcm_ldp5.265"))
 KERNELS = {  # name -> (source, the TPU kernel it replaces, launches a pass)
     "itransform": ("p265_tpu_torch/csrc/itransform.cu",
                    "p265_tpu/kernels/pallas_itransform.py:39", 7),
@@ -206,18 +220,28 @@ def _bit_exact(frames, gold, what: str) -> None:
 
 def phase_small_streams() -> None:
     from p265_tpu_torch.golden.decoder import GoldenDecoder
+    from p265_tpu_torch.kernels import _build
     from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
-    for structure, fn in (("LDP", "s96x64_ldp5.265"),
-                          ("RA", "s96x64_ra5.265")):
+    for structure, fn in SMALL:
         data = _stream_bytes(fn)
         gold = GoldenDecoder().decode_stream(data)
+        _build.reset_launch_counts()
         frames = PipelinedTorchDecoder("cuda").decode_stream(data)
+        launches = dict(_build.LAUNCHES)
         _bit_exact(frames, gold, f"96x64 {structure}")
         if structure == "RA":
             require(any(p.motion.uses(0) and p.motion.uses(1)
                         for g in gold for p in g.plan.pus),
                     "RA stream has no bi-predicted PU")
-        log(f"96x64 {structure}: {len(frames)} frames bit-exact vs golden")
+        if structure == "PCM LDP":
+            require(all(g.plan.pus and any(t.pcm for t in g.plan.tus)
+                        for g in gold if g.poc),
+                    "a P picture of the PCM stream lacks PUs or PCM CUs")
+            require(launches["mc"] == len(gold) - 1,
+                    f"PCM P pictures: {launches['mc']} K2 launches, "
+                    f"expected {len(gold) - 1}")
+        log(f"96x64 {structure}: {len(frames)} frames bit-exact vs golden, "
+            f"launches {launches}")
 
 
 def _stats(dec) -> str:
@@ -226,7 +250,7 @@ def _stats(dec) -> str:
             f"{st['recon_s']:.3f} s, fetch {st['fetch_s']:.3f} s")
 
 
-def phase_1080() -> dict:
+def phase_1080() -> tuple:
     import torch
     from p265_tpu_torch.golden.decoder import GoldenDecoder
     from p265_tpu_torch.kernels import _build
@@ -257,6 +281,8 @@ def phase_1080() -> dict:
     log(f"s1080_ldp4: {len(frames)} frames 1920x1080 bit-exact vs golden "
         "(every plane, pre- and post-filter)")
     require(len(frames) == N_FRAMES, f"expected {N_FRAMES} frames")
+    from p265_tpu_torch.profile_shard import planes_of
+    gold_planes = planes_of(gold)
     del frames, gold, dec
 
     times = []
@@ -274,7 +300,47 @@ def phase_1080() -> dict:
         f"{N_FRAMES / best:.4f} fps (best), spread "
         f"{(max(times) - best) / best * 100:.1f}%; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    return launches
+    return launches, gold_planes
+
+
+def phase_sharded(gold_planes: dict) -> dict:
+    """The space and stream axes over the ranks; returns per axis and rank
+    the kernel launches."""
+    import torch
+    from p265_tpu_torch.profile_shard import (run_ranks, space_axis,
+                                              stream_axis, transport)
+    ranks = max(2, torch.cuda.device_count())
+    backend, cards = transport(ranks)
+    log(f"sharded: {ranks} ranks over {backend} on cards {cards}")
+    data = _stream_bytes(os.path.basename(STREAM))
+    small = [_stream_bytes(fn) for _, fn in SMALL]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ref = os.path.join(d, "s1080_golden.npz")
+        np.savez(ref, **gold_planes)
+        _, res = run_ranks([(space_axis, (data, ref, 1)),
+                            (stream_axis, (small + [data],
+                                           [None] * len(small) + [ref]))],
+                           ranks)
+    out = {"space": [], "stream": []}
+    for rank, (space, stream) in enumerate(res):
+        sp = space[0]
+        log(f"rank {rank} space axis, s1080_ldp4 bit-exact vs golden; "
+            "per picture (wall s, collectives, bytes): " + ", ".join(
+                f"poc {p['poc']} {p['seconds']:.4f} {p['collectives']} "
+                f"{p['bytes']}" for p in sp["pictures"])
+            + f"; launches {sp['launches']}")
+        log(f"rank {rank} stream axis: segments (stream, segment, frames) "
+            f"{stream['segments']} bit-exact in {stream['seconds']:.4f} s; "
+            f"launches {stream['launches']}")
+        for axis, launches in (("space", sp["launches"]),
+                               ("stream", stream["launches"])):
+            require(all(launches[k] > 0 for k in KERNELS),
+                    f"rank {rank} {axis} axis: a kernel never launched: "
+                    f"{launches}")
+            out[axis].append(launches)
+    log(f"sharded phase: {time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def _capture_main_path(data: bytes) -> dict:
@@ -368,7 +434,7 @@ def _work_itransform(groups) -> tuple:
     return nbytes, ops
 
 
-def phase_timing(launches: dict, errs: dict) -> list:
+def phase_timing(launches: dict, sharded: dict, errs: dict) -> list:
     import torch
     from p265_tpu_torch.kernels import itransform, mc
     with open(STREAM, "rb") as f:
@@ -413,6 +479,8 @@ def phase_timing(launches: dict, errs: dict) -> list:
         rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
                          launches=launches[name],
                          launches_per_pass=len(cl),
+                         sharded_launches={ax: [r[name] for r in rs]
+                                           for ax, rs in sharded.items()},
                          max_abs_err=errs[name], ms=ms, device_ms=dev_ms,
                          plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_us=bound_ms * 1e3,
@@ -428,8 +496,9 @@ def main() -> int:
     errs = {"itransform": 0, "mc": 0}
     phase_compare(errs)
     phase_small_streams()
-    launches = phase_1080()
-    rows = phase_timing(launches, errs)
+    launches, gold_planes = phase_1080()
+    sharded = phase_sharded(gold_planes)
+    rows = phase_timing(launches, sharded, errs)
     require("jax" not in sys.modules, "jax was imported")
     ref = sorted(m for m in sys.modules
                  if m == "p265_tpu" or m.startswith("p265_tpu."))

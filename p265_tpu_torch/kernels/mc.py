@@ -7,6 +7,8 @@ torch) and, for the interpolation kernel, p265_tpu/kernels/pallas_mc.py
 (csrc/mc.cu behind `mc_blocks_grouped`, which interpolates every block of
 a picture in one launch; `mc_blocks` is its one-group call).  The host
 copies are NumPy only: the port imports nothing of the JAX package.
+`build_inter_pred_device` gives a picture's prediction planes with its PCM
+samples stamped in, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -323,6 +325,13 @@ def combine(p0, p1, has_l1, w_params):
     return torch.where(has_l1[:, None, None], bi, uni)
 
 
+def uses_l1(arrays) -> bool:
+    """Host: whether any block of mc_arrays_padded's arrays reads list 1
+    (the has_bi of mc_pred_planes, known without a device sync)."""
+    return any(bool(a["has1"].any()) for grp in arrays.values()
+               for a in grp.values())
+
+
 def mc_pred_planes(stacks, arrays, shapes, has_bi: bool) -> list:
     """One picture's MC prediction planes [H, W] int32 (y, cb, cr), with
     the interpolation of every block of every plane and list in ONE
@@ -371,3 +380,83 @@ def mc_pred_planes(stacks, arrays, shapes, has_bi: bool) -> list:
             plane[idx] = torch.cat(val_parts)
         planes.append(plane[:H * W].reshape(H, W))
     return planes
+
+
+# ---------------------------------------------------------------------------
+# PCM samples and the picture's prediction planes
+# ---------------------------------------------------------------------------
+
+
+def pcm_samples(plan, offsets, pitch: int):
+    """Host: (flat indices int64, samples int32) of every PCM TU of `plan`
+    in a plane of row pitch `pitch` where component c starts at row
+    offsets[c] (None: leave component c out); None when there are none.
+
+    PCM TUs are pred-only inter TUs whose levels are the samples, so the
+    samples go into the prediction plane (spec 8.4.4.1 pcm_sample)."""
+    idx, val = [], []
+    for t in plan.tus:
+        if not t.pcm or offsets[t.c_idx] is None:
+            continue
+        ar = np.arange(1 << t.log2)
+        rows = offsets[t.c_idx] + t.y + ar
+        idx.append((rows[:, None] * pitch + t.x + ar[None, :]).ravel())
+        val.append(np.asarray(t.levels, np.int32).ravel())
+    if not idx:
+        return None
+    return np.concatenate(idx).astype(np.int64), np.concatenate(val)
+
+
+def stamp_pcm(plan, out: list) -> None:
+    """Overwrite the PCM CUs' samples of the device planes `out` [y, cb, cr]
+    (int32) with their parsed levels: one scatter a plane.  Counterpart of
+    p265_tpu.kernels.mc.stamp_pcm, which stamps host planes TU by TU."""
+    for c, plane in enumerate(out):
+        st = pcm_samples(plan, [0 if k == c else None for k in range(3)],
+                         plane.shape[1])
+        if st is not None:
+            idx, val = (torch.from_numpy(a).to(plane.device) for a in st)
+            plane.view(-1)[idx] = val
+
+
+def ref_stacks(refs: dict, poc_list: list, device) -> tuple:
+    """(y, cb, cr) uint8 reference stacks [R, H, W] on `device`, in
+    poc_list order.  refs {poc: [y, cb, cr]}: numpy arrays or tensors,
+    values 0..255."""
+    def slab(plane):
+        if isinstance(plane, torch.Tensor):
+            return plane.to(device=device, dtype=torch.uint8)
+        return torch.from_numpy(np.ascontiguousarray(plane, np.uint8)).to(
+            device)
+    return tuple(torch.stack([slab(refs[p][c]) for p in poc_list])
+                 for c in range(3))
+
+
+def build_inter_pred_device(plan, refs: dict, device):
+    """A picture's prediction planes on `device`: the MC of every inter PU
+    through one grouped K2 launch (mc_pred_planes), then the PCM samples
+    stamped over it.  Counterpart of p265_tpu.kernels.mc.
+    build_inter_pred_device (same contract as golden build_inter_pred).
+
+    refs {poc: [y, cb, cr]} reference planes (numpy arrays or tensors).
+    Returns None when the picture has neither inter PUs nor PCM CUs, else
+    three int32 planes on `device` (zero planes under the stamp when it
+    has no PUs)."""
+    has_pcm = any(t.pcm for t in plan.tus)
+    if not plan.pus and not has_pcm:
+        return None
+    device = torch.device(device)
+    H, W = plan.sps.pic_height, plan.sps.pic_width
+    shapes = ((H, W), (H >> 1, W >> 1), (H >> 1, W >> 1))
+    if plan.pus:
+        poc_list = sorted(refs)
+        arrays = mc_arrays_padded(plan, {p: i for i, p in enumerate(poc_list)},
+                                  mc_block_counts(plan))
+        from p265_tpu_torch.pipeline.batch_decode import upload
+        out = mc_pred_planes(ref_stacks(refs, poc_list, device),
+                             upload(arrays, device), shapes, uses_l1(arrays))
+    else:
+        out = [torch.zeros(s, dtype=torch.int32, device=device)
+               for s in shapes]
+    stamp_pcm(plan, out)
+    return out

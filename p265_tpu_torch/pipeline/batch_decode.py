@@ -5,7 +5,8 @@ NumPy) packs the tensor plans into arrays; `decode_batch_planes` (device)
 reproduces `_decode_batch_jit` step for step:
 
 1. MC from device-resident uint8 reference slabs (kernels/mc.py), one
-   kernel launch per frame;
+   kernel launch per frame, then the PCM samples scattered over the
+   prediction (PCM TUs are pred-only inter TUs);
 2. the residuals of every inter TU ("hoisted" out of the scan: they have
    no in-picture dependencies), one kernel launch for all TU sizes, with
    one scatter, then init = clip(pred + residual);
@@ -33,7 +34,7 @@ from p265_tpu_torch.kernels import itransform
 from p265_tpu_torch.kernels.loopfilter import (
     chroma_edge_params, deblock_chroma_vertical, deblock_luma_vertical,
     luma_edge_params, sao_apply, sao_maps)
-from p265_tpu_torch.kernels.mc import mc_pred_planes
+from p265_tpu_torch.kernels.mc import mc_pred_planes, pcm_samples, uses_l1
 from p265_tpu_torch.pipeline.wavefront import (
     GUARD, expand, merge_segments, scan_plane, stack_plane)
 
@@ -78,7 +79,8 @@ def build_batch(tplans: list, plans: list, mc: list | None = None) -> dict:
     frame's prediction planes are then computed on the device from its
     reference slabs.  Returns a dict: "meta" (static shapes and flags),
     "tu" ({log2: scan fields + starts}), "n_steps", "itu" (hoisted inter
-    TUs or None), "fp" (filter and mask arrays) and "mc"."""
+    TUs or None), "fp" (filter and mask arrays), "mc" and "pcm" (flat
+    indices into the tall plane and samples of every PCM TU, or None)."""
     F = len(tplans)
     sps = plans[0].sps
     H, W = sps.pic_height, sps.pic_width
@@ -129,18 +131,54 @@ def build_batch(tplans: list, plans: list, mc: list | None = None) -> dict:
                                   else np.zeros((Hc, Wc), bool))
                                  for c in (1, 2) for m in masks])
 
-    meta = dict(F=F, shape=merged.shape, seg_h=H + GUARD, seg_hc=Hc + GUARD,
+    seg_h, seg_hc = H + GUARD, Hc + GUARD
+    stamps = [st for f, p in enumerate(plans) if (st := pcm_samples(
+        p, segment_rows(F, f, seg_h, seg_hc), merged.shape[1])) is not None]
+    pcm = (None if not stamps else
+           tuple(np.concatenate(a) for a in zip(*stamps)))
+
+    meta = dict(F=F, shape=merged.shape, seg_h=seg_h, seg_hc=seg_hc,
                 H=H, W=W, Hc=Hc, Wc=Wc, deblock=deblock_on,
                 sao_luma=sao_luma, sao_chroma=sao_chroma,
                 ctb=sps.ctb_size, has_masks=has_masks)
     return dict(meta=meta, tu=tu, n_steps=merged.n_steps, itu=itu, fp=fp,
-                mc=mc)
+                mc=mc, pcm=pcm)
 
 
-def _upload(tree, device):
+def segment_rows(F: int, f: int, seg_h: int, seg_hc: int) -> tuple:
+    """First rows of frame f's y, cb and cr segments in the tall plane."""
+    return (f * seg_h, F * seg_h + f * seg_hc, F * seg_h + (F + f) * seg_hc)
+
+
+def upload(tree, device):
+    """A dict tree of NumPy arrays -> the same tree of tensors on device."""
     if isinstance(tree, dict):
-        return {k: _upload(v, device) for k, v in tree.items()}
+        return {k: upload(v, device) for k, v in tree.items()}
     return torch.from_numpy(np.ascontiguousarray(tree)).to(device)
+
+
+def init_plane(itu, pred, shape, device):
+    """Device: the plane [rows, pw] int32 before the scan.  The residuals
+    of the hoisted inter TUs (itu: hoist_inter's dict as device tensors,
+    or None) in one K1 launch for all sizes and one scatter, then
+    clip(pred + residual) everywhere; intra regions get values that the
+    scan overwrites."""
+    plane = torch.zeros(shape, dtype=torch.int32, device=device)
+    if itu is None:
+        return plane
+    pw = shape[1]
+    res = itransform.batch_residual_grouped(itu)
+    idx, val = [], []
+    for log2, d in itu.items():
+        ar = torch.arange(1 << log2, device=device)
+        idx.append(((d["pos"][:, 0, None, None] + ar[None, :, None]) * pw
+                    + d["pos"][:, 1, None, None]
+                    + ar[None, None, :]).reshape(-1))
+        val.append(res[log2].reshape(-1))
+    res_plane = torch.zeros_like(plane).view(-1)
+    res_plane[torch.cat(idx)] = torch.cat(val)
+    base = pred if pred is not None else plane
+    return (base + res_plane.view(shape)).clamp(0, 255)
 
 
 def decode_batch_planes(batch: dict, refs, device):
@@ -155,46 +193,34 @@ def decode_batch_planes(batch: dict, refs, device):
     seg_h, seg_hc = m["seg_h"], m["seg_hc"]
     total_h, pw = m["shape"]
     i32 = torch.int32
-    fp = _upload(batch["fp"], device)
+    fp = upload(batch["fp"], device)
 
     # 1. MC prediction planes at each frame's segment offsets, one grouped
-    #    MC launch per frame; has_bi comes from the host arrays, so no sync
+    #    MC launch per frame; has_bi comes from the host arrays, so no sync;
+    #    then the PCM samples, one scatter over them
     pred = None
-    if batch["mc"] is not None:
+    if batch["mc"] is not None or batch["pcm"] is not None:
         pred = torch.zeros((total_h + GUARD, pw), dtype=i32, device=device)
+    if batch["mc"] is not None:
         shapes = ((H, W), (Hc, Wc), (Hc, Wc))
         for f, (fmc, rf) in enumerate(zip(batch["mc"], refs)):
-            has_bi = any(bool(a["has1"].any()) for grp in fmc.values()
-                         for a in grp.values())
-            planes = mc_pred_planes(rf, _upload(fmc, device), shapes, has_bi)
-            offs = (f * seg_h, F * seg_h + f * seg_hc,
-                    F * seg_h + (F + f) * seg_hc)
+            planes = mc_pred_planes(rf, upload(fmc, device), shapes,
+                                    uses_l1(fmc))
+            offs = segment_rows(F, f, seg_h, seg_hc)
             for oy, (h, w), p in zip(offs, shapes, planes):
                 pred[oy:oy + h, :w] = p
+    if batch["pcm"] is not None:
+        idx, val = (upload(a, device) for a in batch["pcm"])
+        pred.view(-1)[idx] = val
 
-    # 2. hoisted inter TUs: one scatter of their residuals, then
-    #    init = clip(pred + residual); intra regions get garbage that the
-    #    scan overwrites
-    plane = torch.zeros((total_h + GUARD, pw), dtype=i32, device=device)
-    if batch["itu"] is not None:
-        res_plane = torch.zeros_like(plane).view(-1)
-        itu = _upload(batch["itu"], device)
-        res = itransform.batch_residual_grouped(itu)   # all sizes, 1 launch
-        idx, val = [], []
-        for log2, d in itu.items():
-            ar = torch.arange(1 << log2, device=device)
-            idx.append(((d["pos"][:, 0, None, None] + ar[None, :, None]) * pw
-                        + d["pos"][:, 1, None, None]
-                        + ar[None, None, :]).reshape(-1))
-            val.append(res[log2].reshape(-1))
-        res_plane[torch.cat(idx)] = torch.cat(val)
-        base = pred if pred is not None else plane
-        plane = (base + res_plane.view(plane.shape)).clamp(0, 255)
+    # 2. hoisted inter TUs
+    itu = None if batch["itu"] is None else upload(batch["itu"], device)
+    plane = init_plane(itu, pred, (total_h + GUARD, pw), device)
 
     # 3. intra residuals + wavefront scan
     tu = batch["tu"]
     starts = {log2: d["starts"] for log2, d in tu.items()}
-    stacked = expand({log2: _upload({k: v for k, v in d.items()
+    stacked = expand({log2: upload({k: v for k, v in d.items()
                                      if k != "starts"}, device)
                       for log2, d in tu.items()}, pw)
     plane = scan_plane(stacked, starts, batch["n_steps"], plane)

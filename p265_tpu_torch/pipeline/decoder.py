@@ -16,7 +16,8 @@ import torch
 
 from p265_tpu_torch.golden.decoder import DecoderBase
 from p265_tpu_torch.plan.frame_plan import build_tensor_plan
-from p265_tpu_torch.kernels.mc import mc_arrays_padded, mc_block_counts
+from p265_tpu_torch.kernels.mc import (mc_arrays_padded, mc_block_counts,
+                                       ref_stacks)
 from p265_tpu_torch.pipeline.batch_decode import (build_batch,
                                                   decode_batch_planes)
 
@@ -46,27 +47,19 @@ class TorchDecoder(DecoderBase):
             ns.finalize(plan)  # plan.sao must exist before filter packing
         return build_tensor_plan(plan, skip_pred=True)
 
-    def _ref_stacks(self, refs: dict, poc_list: list):
-        """-> (y, cb, cr) uint8 reference stacks [R, H, W] in poc order."""
-        return tuple(torch.stack([refs[p].planes[c] for p in poc_list])
-                     for c in range(3))
-
     def _dispatch(self, task: dict) -> None:
         """Pack + enqueue one picture's device work; fills pic.planes
         (device slabs) and frame.prefilter."""
         plan, frame, pic = task["plan"], task["frame"], task["pic"]
         tplan = task.get("tplan") or self._build_tplan(plan)
-        if getattr(plan, "_has_pcm", False):
-            raise NotImplementedError(
-                "PCM pictures need dense host-stamped prediction planes; "
-                "not ported yet (ROADMAP: PCM dense-pred pictures)")
         mc = refs = None
         if plan.pus:
             poc_list = sorted(task["refs"])
             mc = [mc_arrays_padded(plan,
                                    {p: i for i, p in enumerate(poc_list)},
                                    mc_block_counts(plan))]
-            refs = [self._ref_stacks(task["refs"], poc_list)]
+            refs = [ref_stacks({p: r.planes for p, r in task["refs"].items()},
+                               poc_list, self.device)]
         batch = build_batch([tplan], [plan], mc=mc)
         pl, pc, fl, fc = decode_batch_planes(batch, refs, self.device)
         pic.planes = [fl[0], fc[0], fc[1]]

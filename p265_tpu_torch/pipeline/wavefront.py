@@ -141,14 +141,17 @@ def expand(tu: dict, pw: int) -> dict:
     return out
 
 
-def scan_plane(stacked: dict, starts: dict, n_steps: int, plane):
+def scan_plane(stacked: dict, starts: dict, n_steps: int, plane,
+               after_step=None):
     """Device: run the wavefront over `plane` [rows, pw] int32 in place.
 
     stacked: expand() output; starts: {log2: host int64 [n_steps+1]}.
     Every bucket of a step predicts from the SAME pre-step plane and all
     buckets land in ONE merged scatter (TUs of a step never overlap).
     Chroma TUs ride in the same buckets: their per-TU flags switch the
-    luma-only smoothing and edge filters off (c_idx 0 semantics)."""
+    luma-only smoothing and edge filters off (c_idx 0 semantics).
+    after_step(plane), where given, runs after every step, empty or not
+    (the row-sharded scan refreshes its halo rows there)."""
     flat = plane.view(-1)
     for k in range(n_steps):
         idx, val = [], []
@@ -165,4 +168,6 @@ def scan_plane(stacked: dict, starts: dict, n_steps: int, plane):
             val.append((pred + d["residual"][a:b]).clamp(0, 255).reshape(-1))
         if idx:
             flat[torch.cat(idx)] = torch.cat(val)
+        if after_step is not None:
+            after_step(plane)
     return plane

@@ -1,7 +1,9 @@
 # Copy of p265_tpu/plan/frame_plan.py.  Deviation: the device_mc option and
-# its branches are gone (they imported the JAX MC); the host MC of
-# golden/recon.py is the only MC here, the port's device MC lives in
-# kernels/mc.py.
+# its branches are gone (they imported the JAX MC).  build_tensor_plan
+# keeps the host MC of golden/recon.py; attach_pred_planes takes a device
+# and always uses the port's device MC (kernels/mc.py
+# build_inter_pred_device: K2 plus the PCM stamp), so its inter_pred
+# planes are int32 tensors on that device.
 """Frame-plan tensorization (Stage A output -> Stage B input, SURVEY.md 7.1).
 
 Turns the parsed FramePlan (TU records in z-order) into dense, fixed-shape,
@@ -252,7 +254,7 @@ def build_tensor_plan(plan: FramePlan, refs: dict | None = None,
     return TensorPlan(planes, plan)
 
 
-def attach_pred_planes(tplan: TensorPlan, refs: dict) -> None:
+def attach_pred_planes(tplan: TensorPlan, refs: dict, device) -> None:
     """Fill the MC prediction planes of a tplan built with skip_pred=True,
     now that the reference pictures' pixels exist."""
     plan = tplan.frame_plan
@@ -260,7 +262,7 @@ def attach_pred_planes(tplan: TensorPlan, refs: dict) -> None:
         return
     if all(pp.inter_pred is not None for pp in tplan.planes):
         return  # already attached
-    from p265_tpu_torch.golden.recon import build_inter_pred
-    pred = build_inter_pred(plan, refs or {})
+    from p265_tpu_torch.kernels.mc import build_inter_pred_device
+    pred = build_inter_pred_device(plan, refs or {}, device)
     for pp, pl in zip(tplan.planes, pred):
         pp.inter_pred = pl

@@ -44,7 +44,7 @@ def _stage_table(data: bytes) -> None:
     stages = [(dm, "build_tensor_plan", "tensor plan"),
               (dm, "mc_arrays_padded", "MC pack"),
               (dm, "build_batch", "batch pack"),
-              (bd, "_upload", "upload"),
+              (bd, "upload", "upload"),
               (bd, "mc_pred_planes", "MC"),
               (bd, "expand", "intra residual"),
               (bd, "scan_plane", "scan"),

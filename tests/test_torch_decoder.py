@@ -3,9 +3,10 @@
 TorchDecoder and PipelinedTorchDecoder decode I, LDP, LDP2, RA (bi-pred)
 and weighted-prediction streams, a size that is not a multiple of the CTB,
 transquant-bypass CUs, scaling lists with transform skip, and tiles with
-WPP; every plane of every frame, before and after the loop filters, must
-equal the golden decoder's.  Also: the same as TpuDecoder on one LDP
-stream, the CLI's MD5, and PCM pictures refused with NotImplementedError.
+WPP, and PCM CUs in an I picture and in P pictures; every plane of every
+frame, before and after the loop filters, must equal the golden decoder's.
+Also: the same as TpuDecoder on one LDP stream and on both PCM streams,
+and the CLI's MD5.
 """
 import functools
 import subprocess
@@ -30,14 +31,16 @@ def _intra(w, h, qp, seed, sps_kw=None, pps_kw=None):
         make_test_image(w, h, seed))[0]
 
 
-def _gop(structure, seed, n=5, w=96, h=64, **pps_kw):
+def _gop(structure, seed, n=5, w=96, h=64, sps_kw=None, **pps_kw):
     sps = SPS(pic_width=w, pic_height=h, temporal_mvp_enabled=True,
-              num_reorder_pics=2, max_dec_pic_buffering=5)
+              num_reorder_pics=2, max_dec_pic_buffering=5, **(sps_kw or {}))
     pps = PPS(init_qp=32, sign_data_hiding=True, **pps_kw)
     frames = make_moving_sequence(w, h, n, seed=seed)
     return Encoder(sps, pps, qp=32, seed=seed).encode_sequence(
         frames, structure=structure)[0]
 
+
+_PCM = dict(pcm_enabled=True, pcm_loop_filter_disabled=True)
 
 STREAMS = {
     "I_128x64": lambda: _intra(128, 64, 30, 11),
@@ -55,6 +58,13 @@ STREAMS = {
     "scaling_tskip": lambda: _intra(96, 64, 30, 5,
                                     sps_kw=dict(scaling_list_enabled=True),
                                     pps_kw=dict(transform_skip_enabled=True)),
+    # as tests/test_pcm_bypass_wp.py test_pcm_roundtrip (no sign hiding)
+    "PCM_I": lambda: IntraEncoder(
+        SPS(pic_width=96, pic_height=64, pcm_enabled=True,
+            pcm_loop_filter_disabled=True), PPS(init_qp=30), qp=30,
+        seed=4).encode_frame(make_test_image(96, 64, 4))[0],
+    # every P picture holds both inter PUs and PCM CUs
+    "PCM_LDP": lambda: _gop("LDP", 43, sps_kw=_PCM),
 }
 
 
@@ -81,12 +91,15 @@ def test_matches_golden(name, cls):
     if name == "RA":
         assert any(p.motion.uses(0) and p.motion.uses(1)
                    for g in gold for p in g.plan.pus)
+    if name == "PCM_LDP":
+        assert all(g.plan.pus and any(t.pcm for t in g.plan.tus)
+                   for g in gold[1:])
     _assert_same(cls("cpu").decode_stream(data), gold)
 
 
-def test_matches_tpu_decoder():
+def _assert_same_as_tpu_decoder(name):
     from p265_tpu.pipeline.decoder import TpuDecoder
-    data, _ = _golden("LDP")
+    data, _ = _golden(name)
     want = TpuDecoder().decode_stream(data)
     got = PipelinedTorchDecoder("cpu").decode_stream(data)
     assert [f.poc for f in got] == [f.poc for f in want]
@@ -97,11 +110,29 @@ def test_matches_tpu_decoder():
                                   np.asarray(w.prefilter[c]))
 
 
-def test_pcm_pictures_are_refused():
-    data = _intra(96, 64, 30, 4, sps_kw=dict(pcm_enabled=True,
-                                             pcm_loop_filter_disabled=True))
-    with pytest.raises(NotImplementedError, match="PCM"):
-        PipelinedTorchDecoder("cpu").decode_stream(data)
+def test_matches_tpu_decoder():
+    _assert_same_as_tpu_decoder("LDP")
+
+
+def writable_stamp_pcm(monkeypatch):
+    """TpuDecoder fails on PCM P pictures: its stamp_pcm writes into the
+    read-only np.asarray views of its device MC planes.  Give it writable
+    copies; the samples it computes are unchanged."""
+    import p265_tpu.kernels.mc as jmc
+    orig = jmc.stamp_pcm
+
+    def stamp(plan, out):
+        out[:] = [np.array(p) for p in out]
+        orig(plan, out)
+    monkeypatch.setattr(jmc, "stamp_pcm", stamp)
+
+
+@pytest.mark.parametrize("name", ["PCM_I", "PCM_LDP"])
+def test_pcm_matches_tpu_decoder(name, monkeypatch):
+    """PCM samples stamped over the device prediction, as TpuDecoder does
+    (its device MC and stamp_pcm)."""
+    writable_stamp_pcm(monkeypatch)
+    _assert_same_as_tpu_decoder(name)
 
 
 def test_cli_decode_md5(tmp_path):

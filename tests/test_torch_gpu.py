@@ -138,9 +138,9 @@ def test_itransform_grouped_kernel_matches_plain(cuda):
         assert torch.equal(got[log2], want[log2]), log2
 
 
-def _gop(structure, seed, n=4, w=96, h=64, **pps_kw):
+def _gop(structure, seed, n=4, w=96, h=64, sps_kw=None, **pps_kw):
     sps = SPS(pic_width=w, pic_height=h, temporal_mvp_enabled=True,
-              num_reorder_pics=2, max_dec_pic_buffering=5)
+              num_reorder_pics=2, max_dec_pic_buffering=5, **(sps_kw or {}))
     pps = PPS(init_qp=32, sign_data_hiding=True, **pps_kw)
     frames = make_moving_sequence(w, h, n, seed=seed)
     return Encoder(sps, pps, qp=32, seed=seed).encode_sequence(
@@ -163,6 +163,9 @@ STREAMS = {
                                   num_tile_rows=2,
                                   entropy_coding_sync_enabled=True),
     "I_104x56": lambda: _intra(104, 56, 21),
+    # PCM CUs in the I picture and in every P picture (with inter PUs)
+    "PCM_LDP": lambda: _gop("LDP", 43, n=5, sps_kw=dict(
+        pcm_enabled=True, pcm_loop_filter_disabled=True)),
     "bypass": lambda: _intra(96, 64, 3,
                              pps_kw=dict(transquant_bypass_enabled=True)),
     "scaling_tskip": lambda: _intra(96, 64, 5,

@@ -4,8 +4,9 @@ p265_tpu_torch carries verbatim copies of the JAX-free host modules of
 p265_tpu (parse, DPB, golden decoder, tensor plans, tables), so that it
 imports nothing of p265_tpu.  Each copy must equal its original after the
 import rewrite `p265_tpu` -> `p265_tpu_torch`, apart from the deviations
-listed here and in a comment at the top of the copy (two code changes and
-three reworded comments); the two golden
+listed here and in a comment at the top of the copy (two code changes, the
+first of which sends attach_pred_planes to the port's device MC, and three
+reworded comments); the two golden
 decoders must decode the same planes and the two tensor plans must be
 equal, field by field; the committed test streams must be the ones the JAX
 package's encoder makes for their seeds.
@@ -72,14 +73,17 @@ DEVIATIONS = {
          + "        inter_pred = build_inter_pred(plan, refs or {})\n"),
         ("def attach_pred_planes(tplan: TensorPlan, refs: dict,\n"
          "                       device_mc: bool = True) -> None:",
-         "def attach_pred_planes(tplan: TensorPlan, refs: dict) -> None:"),
+         "def attach_pred_planes(tplan: TensorPlan, refs: dict, device) "
+         "-> None:"),
+        # the device MC only, on an explicit device
         ("    if device_mc:\n"
          "        from p265_tpu_torch.kernels.mc import "
          "build_inter_pred_device\n"
          "        pred = build_inter_pred_device(plan, refs or {})\n"
          "    else:\n"
          "        " + _HOST_MC[0] + "        " + _HOST_MC[1],
-         "    " + _HOST_MC[0] + "    " + _HOST_MC[1]),
+         "    from p265_tpu_torch.kernels.mc import build_inter_pred_device\n"
+         "    pred = build_inter_pred_device(plan, refs or {}, device)\n"),
     ],
     "native/__init__.py": [
         ('_SO = os.path.join(_DIR, "_cabac.so")',
@@ -160,9 +164,9 @@ def test_tables_constants_equal():
         assert _same(getattr(jtables, n), getattr(ttables, n)), n
 
 
-def _gop(structure, n, seed, w=96, h=64, qp=30, **pps_kw):
+def _gop(structure, n, seed, w=96, h=64, qp=30, sps_kw=None, **pps_kw):
     sps = SPS(pic_width=w, pic_height=h, temporal_mvp_enabled=True,
-              num_reorder_pics=2, max_dec_pic_buffering=5)
+              num_reorder_pics=2, max_dec_pic_buffering=5, **(sps_kw or {}))
     pps = PPS(init_qp=qp, sign_data_hiding=True, **pps_kw)
     return Encoder(sps, pps, qp=qp, seed=seed).encode_sequence(
         make_moving_sequence(w, h, n, seed=seed), structure=structure)[0]
@@ -274,10 +278,15 @@ def _sums() -> dict:
     return out
 
 
-@pytest.mark.parametrize("fn,structure,seed", [
-    ("s96x64_ldp5.265", "LDP", 41), ("s96x64_ra5.265", "RA", 50)])
-def test_committed_small_streams_match_the_encoder(fn, structure, seed):
+_PCM = dict(pcm_enabled=True, pcm_loop_filter_disabled=True)
+
+
+@pytest.mark.parametrize("fn,structure,seed,sps_kw", [
+    ("s96x64_ldp5.265", "LDP", 41, None), ("s96x64_ra5.265", "RA", 50, None),
+    ("s96x64_pcm_ldp5.265", "LDP", 43, _PCM)])
+def test_committed_small_streams_match_the_encoder(fn, structure, seed,
+                                                   sps_kw):
     with open(os.path.join(DATA, fn), "rb") as f:
         data = f.read()
     assert hashlib.sha256(data).hexdigest() == _sums()[fn]
-    assert data == _gop(structure, 5, seed, qp=32)
+    assert data == _gop(structure, 5, seed, qp=32, sps_kw=sps_kw)

@@ -208,3 +208,63 @@ def test_mc_blocks_grouped_refuses_devices_without_a_kernel():
     z = torch.zeros((4, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         mc.mc_blocks_grouped([(refs, z, z[:, 0], z, 4, 8)])
+
+
+@pytest.fixture(scope="module")
+def pcm_ldp():
+    """Golden decode of an LDP stream whose P pictures hold both inter PUs
+    and PCM CUs (the committed s96x64_pcm_ldp5)."""
+    sps = SPS(pic_width=96, pic_height=64, temporal_mvp_enabled=True,
+              num_reorder_pics=2, max_dec_pic_buffering=5, pcm_enabled=True,
+              pcm_loop_filter_disabled=True)
+    pps = PPS(init_qp=32, sign_data_hiding=True)
+    stream, _ = Encoder(sps, pps, qp=32, seed=43).encode_sequence(
+        make_moving_sequence(96, 64, 5, seed=43), structure="LDP")
+    return GoldenDecoder().decode_stream(stream)
+
+
+def _writable_stamp_pcm(monkeypatch):
+    """The JAX build_inter_pred_device stamps PCM into read-only
+    np.asarray views of its device planes, which fails on a picture with
+    PUs; give its stamp_pcm writable copies (same samples)."""
+    orig = jmc.stamp_pcm
+
+    def stamp(plan, out):
+        out[:] = [np.array(p) for p in out]
+        orig(plan, out)
+    monkeypatch.setattr(jmc, "stamp_pcm", stamp)
+
+
+@pytest.mark.parametrize("poc", [0, 1, 4])
+def test_build_inter_pred_device_matches_jax_with_pcm(pcm_ldp, poc,
+                                                      monkeypatch):
+    """MC through the grouped path, then the PCM stamp: equal to the JAX
+    package's device MC + stamp and to the golden host MC, on the I picture
+    (zero planes under the stamp) and on P pictures with PUs and PCM CUs;
+    attach_pred_planes attaches the same planes."""
+    from p265_tpu_torch.golden.recon import build_inter_pred
+    from p265_tpu_torch.plan.frame_plan import (attach_pred_planes,
+                                                build_tensor_plan)
+    _writable_stamp_pcm(monkeypatch)
+    by_poc = {g.poc: g.planes for g in pcm_ldp}
+    g = next(g for g in pcm_ldp if g.poc == poc)
+    plan = g.plan
+    assert any(t.pcm for t in plan.tus) and bool(plan.pus) == (poc > 0)
+    refs = {p: by_poc[p] for p in plan.l0_pocs + plan.l1_pocs}
+    got = mc.build_inter_pred_device(plan, refs, "cpu")
+    want = jmc.build_inter_pred_device(plan, refs)
+    host = build_inter_pred(plan, refs)
+    tplan = build_tensor_plan(plan, skip_pred=True)
+    attach_pred_planes(tplan, refs, "cpu")
+    for c in range(3):
+        assert got[c].dtype == torch.int32
+        assert np.array_equal(got[c].numpy(), want[c]), c
+        assert np.array_equal(got[c].numpy(), host[c]), c
+        assert torch.equal(tplan.planes[c].inter_pred, got[c]), c
+
+
+def test_build_inter_pred_device_none_without_pus_or_pcm(ra_wp):
+    gold, _ = ra_wp
+    intra = next(g for g in gold if not g.plan.pus)
+    assert mc.build_inter_pred_device(intra.plan, {}, "cpu") is None
+    assert jmc.build_inter_pred_device(intra.plan, {}) is None

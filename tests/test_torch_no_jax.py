@@ -1,6 +1,7 @@
 """The port must run where JAX is not installed, on its own.
 
-A fresh interpreter imports every p265_tpu_torch module and decodes the
+A fresh interpreter imports every p265_tpu_torch module (the sharded
+paths of p265_tpu_torch.shard among them) and decodes the
 committed 96x64 LDP stream on CPU tensors against the port's own golden
 decoder; jax, jaxlib and ml_dtypes (on the GPU machine any of them would be
 an import crash) and every module of the JAX package p265_tpu must stay out
@@ -27,6 +28,9 @@ mods = [m.name for m in pkgutil.walk_packages(p265_tpu_torch.__path__,
                                               "p265_tpu_torch.")]
 for name in mods:
     importlib.import_module(name)
+shard = {"p265_tpu_torch.shard." + m for m in ("mesh", "filters", "spatial",
+                                               "decoder", "distributed")}
+assert shard <= set(mods), sorted(shard - set(mods))
 from p265_tpu_torch.golden.decoder import GoldenDecoder
 from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
 with open("p265_tpu_torch/data/s96x64_ldp5.265", "rb") as f:
