@@ -16,11 +16,28 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    streams (PCM CUs in the I picture and in every P picture, whose MC runs
    through K2), PipelinedTorchDecoder on cuda vs the port's GoldenDecoder,
    bit-exact.
-5. s1080_ldp4 (1920x1080, IDR + 3 P, QP 32; p265_tpu_torch/data): one
+5. frame DAG, small: s96x64_ra5 through PipelinedTorchDecoder with
+   frame_dag_max 1 and 4, bit-exact, sibling B pictures batched at 4 only.
+6. unfused and per-stage paths (96x64 LDP and RA): TorchDecoder on cuda
+   with fused=False, filters_on_device=False, apply_filters=False and
+   use_native_parse=False against golden; reconstruct_scan_frames +
+   loop_filters_frames against the fused decoder's planes.
+7. options: a two-GOP stream (s96x64_ldp5 twice) with a truncated slice
+   under error_resilient (errors recorded, the second GOP bit-exact);
+   save_state on cuda halfway, load_state into a new decoder, the tail
+   bit-exact.
+8. the CLI as a subprocess: decode --device cuda --pipelined --md5
+   --metrics; golden's MD5 and the metrics keys.
+9. s1080_ldp4 (1920x1080, IDR + 3 P, QP 32; p265_tpu_torch/data): one
    cold pass bit-exact against GoldenDecoder on every plane, with the
    kernel launch counters reset just before it (3 MC and 7 residual
    launches a pass); then 3 warm passes.
-6. sharded: one process a rank (NCCL with one rank a card where there are
+10. frame DAG at full width: RA_STREAM (1920x1080 random access, QP 32,
+   bi-prediction) with frame_dag_max 1 and 4, one cold and three warm
+   passes each, in turns; every pass bit-exact against golden on every
+   plane before and after the filters; dag_batched, the K1/K2 launches a
+   pass, the scan steps of every dispatch, and fps with spread for both.
+11. sharded: one process a rank (NCCL with one rank a card where there are
    two cards or more, else two ranks sharing cuda:0 over gloo).  The space
    axis decodes every picture of s1080_ldp4 row-sharded over the ranks
    (SpatialDecoder), each picture's planes before and after the filters
@@ -29,11 +46,14 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    decode_segments_production, bit-exact.  Per rank: the wall time,
    collectives and bytes of each picture, and the K1/K2 launches (counters
    reset just before each axis), which must both be above 0.
-7. per-kernel time against the plain version and the bound, over every
+12. per-kernel time against the plain version and the bound, over every
    call the main path made on one pass of s1080_ldp4: the CUDA-event
    window of the calls (`ms`, host launch gaps included) and the kernel's
    own device time from torch.profiler (`device_ms`).
 
+Every path from phase 4 on is driven with the kernels' launch counts set
+to 0 just before it and read just after; both must be above 0 (launches
+made to compare a kernel with its plain version are outside those windows).
 Nothing of JAX and nothing of the JAX package p265_tpu may be imported.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -55,6 +75,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "p265_tpu_torch", "data")
 STREAM = os.path.join(DATA, "s1080_ldp4.265")
 N_FRAMES = 4
+RA_STREAM = "s1080_ra8.265"
 SMALL = (("LDP", "s96x64_ldp5.265"), ("RA", "s96x64_ra5.265"),
          ("PCM LDP", "s96x64_pcm_ldp5.265"))
 KERNELS = {  # name -> (source, the TPU kernel it replaces, launches a pass)
@@ -218,6 +239,12 @@ def _bit_exact(frames, gold, what: str) -> None:
                     f"{what}: poc {f.poc} prefilter {c} differs from golden")
 
 
+def _stats(dec) -> str:
+    st = dec.stats
+    return (f"parse {st['parse_s']:.3f} s, recon dispatch "
+            f"{st['recon_s']:.3f} s, fetch {st['fetch_s']:.3f} s")
+
+
 def phase_small_streams() -> None:
     from p265_tpu_torch.golden.decoder import GoldenDecoder
     from p265_tpu_torch.kernels import _build
@@ -244,10 +271,270 @@ def phase_small_streams() -> None:
             f"launches {launches}")
 
 
-def _stats(dec) -> str:
-    st = dec.stats
-    return (f"parse {st['parse_s']:.3f} s, recon dispatch "
-            f"{st['recon_s']:.3f} s, fetch {st['fetch_s']:.3f} s")
+def _counted(what: str, fn):
+    """Run fn() with the kernels' launch counts set to 0 just before and
+    read just after; both kernels must have launched.  -> (result,
+    launches)."""
+    from p265_tpu_torch.kernels import _build
+    _build.reset_launch_counts()
+    out = fn()
+    launches = dict(_build.LAUNCHES)
+    require(all(launches[k] > 0 for k in KERNELS),
+            f"{what}: a kernel never launched: {launches}")
+    return out, launches
+
+
+def _dag_pass(data: bytes, dag: int) -> dict:
+    """One pass of PipelinedTorchDecoder("cuda", frame_dag_max=dag): wall
+    seconds to every plane on the host, the frames, dag_batched, the
+    kernels' launches, and (pocs, scan steps) of every dispatch."""
+    from p265_tpu_torch.pipeline import decoder as dm
+    from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
+    dispatches = []
+    orig = dm.build_batch
+
+    def spy(tplans, plans, **kw):
+        batch = orig(tplans, plans, **kw)
+        dispatches.append(([p.poc for p in plans], batch["n_steps"]))
+        return batch
+
+    dm.build_batch = spy
+    try:
+        dec = PipelinedTorchDecoder("cuda", frame_dag_max=dag)
+
+        def run():
+            t0 = time.perf_counter()
+            frames = dec.decode_stream(data)
+            return frames, time.perf_counter() - t0
+        (frames, seconds), launches = _counted(f"frame_dag_max={dag}", run)
+    finally:
+        dm.build_batch = orig
+    return dict(frames=frames, seconds=seconds, launches=launches,
+                batched=dec.stats.get("dag_batched"), dispatches=dispatches,
+                stats=_stats(dec))
+
+
+def _check_dag_pass(p: dict, dag: int, gold, what: str) -> None:
+    _bit_exact(p["frames"], gold, f"{what} frame_dag_max={dag}")
+    if dag == 1:
+        require(p["batched"] is None, f"{what}: dag_batched at 1")
+        require(all(len(pocs) == 1 for pocs, _ in p["dispatches"]),
+                f"{what}: a group at frame_dag_max=1")
+    else:
+        require((p["batched"] or 0) >= 2,
+                f"{what}: dag_batched {p['batched']} at frame_dag_max={dag}")
+        require(p["batched"] == sum(len(pocs) for pocs, _ in p["dispatches"]
+                                    if len(pocs) > 1),
+                f"{what}: dag_batched does not count the grouped pictures")
+
+
+def phase_frame_dag(fn: str, warm: int) -> dict:
+    """A random-access stream at frame_dag_max 1 and 4, in turns: one cold
+    pass each, then `warm` warm passes each; every pass bit-exact."""
+    import torch
+    from p265_tpu_torch.golden.decoder import GoldenDecoder
+    data = _stream_bytes(fn)
+    t0 = time.perf_counter()
+    gold = GoldenDecoder().decode_stream(data)
+    h, w = gold[0].planes[0].shape
+    what = f"{fn} ({w}x{h}, {len(gold)} frames)"
+    log(f"{what}: golden NumPy decode {time.perf_counter() - t0:.2f} s")
+    require(any(p.motion.uses(0) and p.motion.uses(1)
+                for g in gold for p in g.plan.pus),
+            f"{what}: no bi-predicted PU")
+    n_inter = sum(1 for g in gold if g.plan.pus)
+    out = {}
+    turns = [1, 4] + ([1, 4, 4, 1] * warm)[:2 * warm]
+    times = {1: [], 4: []}
+    for i, dag in enumerate(turns):
+        torch.cuda.synchronize()
+        p = _dag_pass(data, dag)
+        _check_dag_pass(p, dag, gold, what)
+        require(p["launches"]["mc"] == n_inter,
+                f"{what}: {p['launches']['mc']} K2 launches for {n_inter} "
+                "inter pictures")
+        cold = i < 2
+        log(f"frame_dag_max={dag} {'cold' if cold else 'warm'} pass: "
+            f"{p['seconds']:.3f} s ({p['stats']}), launches "
+            f"{p['launches']}, dag_batched {p['batched']}")
+        if cold:
+            log(f"  dispatches (pocs: scan steps): " + ", ".join(
+                f"{pocs}: {steps}" for pocs, steps in p["dispatches"]))
+            out[dag] = dict(launches=p["launches"], batched=p["batched"],
+                            dispatches=p["dispatches"], cold_s=p["seconds"])
+        else:
+            times[dag].append(p["seconds"])
+        del p
+    require(out[4]["launches"]["itransform"]
+            < out[1]["launches"]["itransform"],
+            f"{what}: grouping did not save K1 launches")
+    steps = {dag: sum(s for _, s in out[dag]["dispatches"]) for dag in out}
+    log(f"{what}: scan steps a pass {steps[1]} ungrouped, {steps[4]} "
+        f"grouped; K1 launches {out[1]['launches']['itransform']} / "
+        f"{out[4]['launches']['itransform']}, K2 {n_inter} / {n_inter}")
+    for dag, ts in times.items():
+        if ts:
+            best = min(ts)
+            out[dag].update(warm_s=ts, fps=len(gold) / best,
+                            spread=(max(ts) - best) / best)
+            log(f"frame_dag_max={dag}: warm passes "
+                f"{[round(t, 4) for t in ts]} s; {len(gold) / best:.4f} "
+                f"fps (best), spread {(max(ts) - best) / best * 100:.1f}%, "
+                f"median {statistics.median(ts):.4f} s")
+    if warm:
+        # the passes are in turns 1, 4, 4, 1, ...: the k-th of each pair up
+        wins = sum(b < a for a, b in zip(times[1], times[4]))
+        log(f"{what}: frame_dag_max=4 faster than 1 in {wins} of {warm} "
+            "pairs of warm passes")
+    return out
+
+
+def phase_unfused() -> None:
+    """The unfused decoder and the per-stage entry points on the card."""
+    import torch
+    from p265_tpu_torch.golden.decoder import GoldenDecoder
+    from p265_tpu_torch.kernels.loopfilter import loop_filters_frames
+    from p265_tpu_torch.pipeline.decoder import TorchDecoder
+    from p265_tpu_torch.pipeline.wavefront import reconstruct_scan_frames
+    from p265_tpu_torch.plan.frame_plan import attach_pred_planes
+    options = (dict(fused=False), dict(filters_on_device=False),
+               dict(apply_filters=False), dict(use_native_parse=False))
+    for structure, fn in SMALL[:2]:
+        data = _stream_bytes(fn)
+        gold = GoldenDecoder().decode_stream(data)
+        unfiltered = GoldenDecoder(apply_filters=False).decode_stream(data)
+        for kw in options:
+            dec = TorchDecoder("cuda", **kw)
+            require(dec.fused == (kw == dict(use_native_parse=False)),
+                    f"{kw}: fused is {dec.fused}")
+            frames, launches = _counted(
+                f"96x64 {structure} {kw}", lambda: dec.decode_stream(data))
+            _bit_exact(frames,
+                       gold if kw.get("apply_filters", True) else unfiltered,
+                       f"96x64 {structure} TorchDecoder {kw}")
+            log(f"96x64 {structure} TorchDecoder(cuda, {kw}): bit-exact vs "
+                f"golden, launches {launches}")
+
+        # per-stage entry points against the fused decoder's planes
+        dec = TorchDecoder("cuda")
+        fused = dec.decode_stream(data)
+        _bit_exact(fused, gold, f"96x64 {structure} fused")
+
+        def stages():
+            tplans = []
+            for f in fused:
+                tp = dec._build_tplan(f.plan)
+                attach_pred_planes(tp, {o.poc: o.planes for o in fused
+                                        if o.poc != f.poc}, "cuda")
+                tplans.append(tp)
+            pre = reconstruct_scan_frames(tplans, "cuda")
+            return pre, loop_filters_frames([f.plan for f in fused], pre,
+                                            "cuda")
+        (pre, filt), launches = _counted(f"96x64 {structure} stages", stages)
+        for f, p, q in zip(fused, pre, filt):
+            for c in range(3):
+                require(p[c].is_cuda and q[c].is_cuda, "a plane left cuda")
+                require(torch.equal(p[c], f.prefilter[c].to(torch.int32)),
+                        f"reconstruct_scan_frames poc {f.poc} plane {c}")
+                require(np.array_equal(q[c].cpu().numpy(), f.planes[c]),
+                        f"loop_filters_frames poc {f.poc} plane {c}")
+        log(f"96x64 {structure}: reconstruct_scan_frames + "
+            f"loop_filters_frames == fused decoder, launches {launches}")
+
+
+def _two_gops() -> tuple:
+    """s96x64_ldp5 followed by its own slices: IDR P P P P | IDR P P P P,
+    one set of parameter sets.  -> (stream, units)."""
+    from p265_tpu_torch.hls import nal
+    data = _stream_bytes(SMALL[0][1])
+    units = nal.split_nal_units(data)
+    stream = data + b"".join(nal.make_nal(u.nal_type, u.rbsp) for u in units
+                             if nal.is_slice_nal(u.nal_type))
+    return stream, nal.split_nal_units(stream)
+
+
+def phase_options() -> None:
+    """Error resilience and checkpoint/resume on the card."""
+    import torch
+    from p265_tpu_torch.golden.decoder import GoldenDecoder
+    from p265_tpu_torch.hls import nal
+    from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
+    stream, units = _two_gops()
+    full = GoldenDecoder().decode_stream(stream)
+    require(len(full) == 10, f"two GOPs gave {len(full)} frames")
+
+    # a truncated slice in the first GOP: resync at the second IDR
+    slices = [i for i, u in enumerate(units) if nal.is_slice_nal(u.nal_type)]
+    bad = b"".join(
+        nal.make_nal(u.nal_type, u.rbsp[:max(8, len(u.rbsp) // 3)]
+                     if i == slices[1] else u.rbsp)
+        for i, u in enumerate(units))
+    gdec = GoldenDecoder(error_resilient=True)
+    want = gdec.decode_stream(bad)
+    dec = PipelinedTorchDecoder("cuda", error_resilient=True)
+    frames, launches = _counted("resilient",
+                                lambda: dec.decode_stream(bad))
+    require(dec.errors and len(dec.errors) == len(gdec.errors),
+            f"errors {dec.errors}, golden's {gdec.errors}")
+    _bit_exact(frames, want, "resilient decode")
+    _bit_exact(frames[-5:], full[-5:], "second GOP after the resync")
+    log(f"error_resilient on cuda: {len(dec.errors)} error(s) recorded, "
+        f"{len(frames)} frames as golden, the second GOP bit-exact, "
+        f"launches {launches}")
+
+    # checkpoint halfway, resume in a new decoder
+    half = len(units) // 2
+    d1 = PipelinedTorchDecoder("cuda", frame_dag_max=4)
+    for u in units[:half]:
+        d1.decode_nal(u)
+    state = d1.save_state()
+    pics = state["dpb"].pics
+    require(pics and all(p.planes is not None and p.user.planes is not None
+                         and all(t.is_cuda for t in p.planes) for p in pics),
+            "save_state: a picture of the DPB is unfinished or off the card")
+    d2 = PipelinedTorchDecoder("cuda", frame_dag_max=4)
+    d2.load_state(state)
+
+    def resume():
+        for u in units[half:]:
+            d2.decode_nal(u)
+        return d2.flush()
+    resumed, launches = _counted("resume", resume)
+    require(len(resumed) >= 5, f"resumed {len(resumed)} frames")
+    _bit_exact(resumed, full[len(full) - len(resumed):], "resumed tail")
+    for u in units[half:]:
+        d1.decode_nal(u)
+    _bit_exact(d1.flush(), full, "the decoder the state was taken from")
+    torch.cuda.synchronize()
+    log(f"save_state on cuda after {half} of {len(units)} NAL units, "
+        f"load_state: {len(resumed)} resumed frames bit-exact, launches "
+        f"{launches}")
+
+
+def phase_cli() -> None:
+    """python -m p265_tpu_torch.cli decode on the card, as a subprocess."""
+    from p265_tpu_torch import yuv
+    from p265_tpu_torch.golden.decoder import GoldenDecoder
+    src = os.path.join(DATA, SMALL[0][1])
+    gold = GoldenDecoder().decode_stream(_stream_bytes(SMALL[0][1]))
+    want = yuv.sequence_md5([[np.clip(p, 0, 255) for p in g.cropped_planes()]
+                             for g in gold])
+    with tempfile.TemporaryDirectory() as d:
+        met = os.path.join(d, "metrics.jsonl")
+        r = subprocess.run(
+            [sys.executable, "-m", "p265_tpu_torch.cli", "decode", "-i", src,
+             "--device", "cuda", "--pipelined", "--md5", "--metrics", met],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        require(r.returncode == 0, f"cli decode failed:\n{r.stderr}")
+        with open(met) as f:
+            rec = json.loads(f.read().strip())
+    require(f"MD5: {want}" in r.stdout.splitlines(),
+            f"cli MD5 differs from golden's {want}:\n{r.stdout}")
+    keys = ("frames", "parse_s", "pack_s", "upload_s", "dispatch_s")
+    require(all(k in rec for k in keys) and rec["frames"] == len(gold),
+            f"cli metrics record {rec}")
+    log("cli decode --device cuda --pipelined: MD5 as golden; metrics "
+        + json.dumps({k: rec[k] for k in keys}))
 
 
 def phase_1080() -> tuple:
@@ -434,7 +721,8 @@ def _work_itransform(groups) -> tuple:
     return nbytes, ops
 
 
-def phase_timing(launches: dict, sharded: dict, errs: dict) -> list:
+def phase_timing(launches: dict, sharded: dict, dag: dict,
+                 errs: dict) -> list:
     import torch
     from p265_tpu_torch.kernels import itransform, mc
     with open(STREAM, "rb") as f:
@@ -481,6 +769,9 @@ def phase_timing(launches: dict, sharded: dict, errs: dict) -> list:
                          launches_per_pass=len(cl),
                          sharded_launches={ax: [r[name] for r in rs]
                                            for ax, rs in sharded.items()},
+                         frame_dag_launches={
+                             str(k): v["launches"][name]
+                             for k, v in dag.items()},
                          max_abs_err=errs[name], ms=ms, device_ms=dev_ms,
                          plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_us=bound_ms * 1e3,
@@ -496,9 +787,14 @@ def main() -> int:
     errs = {"itransform": 0, "mc": 0}
     phase_compare(errs)
     phase_small_streams()
+    phase_frame_dag(SMALL[1][1], warm=0)
+    phase_unfused()
+    phase_options()
+    phase_cli()
     launches, gold_planes = phase_1080()
+    dag = phase_frame_dag(RA_STREAM, warm=3)
     sharded = phase_sharded(gold_planes)
-    rows = phase_timing(launches, sharded, errs)
+    rows = phase_timing(launches, sharded, dag, errs)
     require("jax" not in sys.modules, "jax was imported")
     ref = sorted(m for m in sys.modules
                  if m == "p265_tpu" or m.startswith("p265_tpu."))

@@ -1,6 +1,6 @@
 """Batched intra prediction (spec 8.4.4.2) as one matrix product per TU.
 
-Counterpart of p265_tpu/kernels/intra.py (`filter_refs`) and
+Counterpart of p265_tpu/kernels/intra.py (`filter_refs`, `predict_batch`) and
 p265_tpu/kernels/intra_mxu.py (`a_table`, `predict_values`).  Every mode is
 linear in the (filtered) reference samples, so per (mode, size) an integer
 matrix A [s*s, 4s+3] over v = [left(0..2s), top(0..2s), 1] gives
@@ -206,3 +206,20 @@ def predict_values(plane, pos, ref_ys, ref_xs, ref_ok, mode, filter_flag,
         pred = torch.where(inter[:, None, None], mc, pred)
     out = (pred + residual).clamp(0, 255)
     return rows, cols, out
+
+
+def predict_batch(plane, pos, ref_ys, ref_xs, ref_ok, mode, filter_flag,
+                  strong_allowed, residual, size: int, c_idx: int,
+                  inter=None, pred_plane=None, dc_edge=None):
+    """predict_values + the scatter into the plane, one call: a new plane,
+    the input is not modified.  Counterpart of the JAX package's
+    kernels/intra.py predict_batch and kernels/intra_mxu.py
+    predict_batch_mxu, which give the same integers by two routes; the
+    port has the one exact route of predict_from_refs."""
+    rows, cols, out = predict_values(
+        plane, pos, ref_ys, ref_xs, ref_ok, mode, filter_flag,
+        strong_allowed, residual, size, c_idx, inter=inter,
+        pred_plane=pred_plane, dc_edge=dc_edge)
+    plane = plane.clone()
+    plane[rows, cols] = out
+    return plane

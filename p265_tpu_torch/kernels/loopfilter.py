@@ -6,12 +6,21 @@ the JAX module's host half: the port imports nothing of the JAX package);
 the device filters whole batches of planes with branch-free int32 torch.
 The horizontal deblocking pass is the vertical filter on the transposed
 planes.  The JAX package ran these as XLA, so they are plain torch.
+
+One assembly of the chain serves every caller: `pack_filter_params` (host)
+and `filter_planes` (device: deblocking, SAO, then the restore of the
+bypass samples) are what the fused batch path runs; the per-picture entry
+points `deblock`, `sao`, `loop_filters` and `loop_filters_frames`
+(counterparts of deblock_tpu, sao_tpu, loop_filters_tpu and
+loop_filters_tpu_frames) stack their pictures and run the same two.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from p265_tpu_torch.golden.decoder import bypass_pixel_masks
+from p265_tpu_torch.kernels import upload
 from p265_tpu_torch.syntax.ctu import SAO_BAND, SAO_EDGE
 from p265_tpu_torch.tables import BETA_TABLE, TC_TABLE, chroma_qp_from_luma
 
@@ -305,3 +314,147 @@ def sao_apply(src, ty_g, cls_g, offs_g, ctb: int):
     delta = torch.where(ty == SAO_BAND, d_band,
                         torch.where(ty == SAO_EDGE, d_edge, zero))
     return (v + delta).clamp(0, 255)
+
+
+# ---------------------------------------------------------------------------
+# the chain: deblocking, SAO, restore of the bypass samples
+# ---------------------------------------------------------------------------
+
+
+def filter_flags(plan) -> tuple:
+    """(deblocking on, SAO luma on, SAO chroma on) of one picture."""
+    return (not plan.sh.deblocking_filter_disabled,
+            bool(plan.sps.sao_enabled and plan.sh.sao_luma),
+            bool(plan.sps.sao_enabled and plan.sh.sao_chroma))
+
+
+def pack_filter_params(plans: list, flags=None, masks: bool = True) -> dict:
+    """Host: the filter arrays of F pictures of one resolution, stacked on
+    a leading axis in the batch layout (luma: F; chroma: F cb, then F cr).
+
+    flags: the (deblock, sao_luma, sao_chroma) stages to pack, default the
+    pictures' own flags, which must then be the same for all of them.  A
+    stage's keys are present only when it is on (bs/beta/tc/tcc_{v,h},
+    sao_{ty,cls,off}_{0,1}); mask_y/mask_c only when `masks` and a picture
+    has bypass samples.  filter_planes runs exactly the stages it finds."""
+    if flags is None:
+        sigs = {filter_flags(p) for p in plans}
+        if len(sigs) != 1:
+            raise ValueError("pictures with different loop-filter flags in "
+                             f"one batch: {sigs}")
+        flags = sigs.pop()
+    deblock_on, sao_luma, sao_chroma = flags
+    fp = {}
+    if deblock_on:
+        for vertical in (True, False):
+            lp = [luma_edge_params(p, vertical) for p in plans]
+            cp = [chroma_edge_params(p, vertical) for p in plans]
+            key = "v" if vertical else "h"
+            fp[f"bs_{key}"] = np.stack([x[0] for x in lp])
+            fp[f"beta_{key}"] = np.stack([x[1] for x in lp])
+            fp[f"tc_{key}"] = np.stack([x[2] for x in lp])
+            fp[f"tcc_{key}"] = np.stack([x[0] for x in cp]
+                                        + [x[1] for x in cp])
+    for c, on in ((0, sao_luma), (1, sao_chroma)):
+        if not on:
+            continue
+        maps = [sao_maps(p, cc) for cc in ((0,) if c == 0 else (1, 2))
+                for p in plans]
+        for i, name in enumerate(("ty", "cls", "off")):
+            fp[f"sao_{name}_{c}"] = np.stack([m[i] for m in maps])
+    if masks:
+        ms = [bypass_pixel_masks(p) for p in plans]
+        if any(m is not None for m in ms):
+            sps = plans[0].sps
+            H, W = sps.pic_height, sps.pic_width
+            fp["mask_y"] = np.stack([(m[0] if m is not None
+                                      else np.zeros((H, W), bool))
+                                     for m in ms])
+            fp["mask_c"] = np.stack([(m[c] if m is not None
+                                      else np.zeros((H >> 1, W >> 1), bool))
+                                     for c in (1, 2) for m in ms])
+    return fp
+
+
+def filter_planes(luma, chroma, fp: dict, ctb: int) -> tuple:
+    """Device: luma [F,H,W] and chroma [2F,Hc,Wc] int32 prefilter planes ->
+    the filtered pair; fp is pack_filter_params' dict as tensors on the
+    planes' device, ctb the luma CTB size."""
+    pre_luma, pre_chroma = luma, chroma
+    # deblocking: vertical edges, then horizontal on the transposes
+    if "bs_v" in fp:
+        for key in ("v", "h"):
+            if key == "h":
+                luma, chroma = luma.transpose(1, 2), chroma.transpose(1, 2)
+            bs = fp[f"bs_{key}"]
+            if bs.shape[2]:
+                luma = deblock_luma_vertical(luma, bs, fp[f"beta_{key}"],
+                                             fp[f"tc_{key}"])
+            tcc = fp[f"tcc_{key}"]
+            if tcc.shape[2]:
+                chroma = deblock_chroma_vertical(chroma, tcc)
+            if key == "h":
+                luma, chroma = luma.transpose(1, 2), chroma.transpose(1, 2)
+    if "sao_ty_0" in fp:
+        luma = sao_apply(luma, fp["sao_ty_0"], fp["sao_cls_0"],
+                         fp["sao_off_0"], ctb)
+    if "sao_ty_1" in fp:
+        chroma = sao_apply(chroma, fp["sao_ty_1"], fp["sao_cls_1"],
+                           fp["sao_off_1"], ctb >> 1)
+    # bypass samples keep their pre-filter values
+    if "mask_y" in fp:
+        luma = torch.where(fp["mask_y"], pre_luma, luma)
+        chroma = torch.where(fp["mask_c"], pre_chroma, chroma)
+    return luma, chroma
+
+
+# ---------------------------------------------------------------------------
+# per-picture entry points: [y, cb, cr] planes in, [y, cb, cr] planes out
+# ---------------------------------------------------------------------------
+
+
+def _filter_frames(plans: list, planes_list: list, device, flags=None,
+                   masks: bool = True) -> list:
+    device = torch.device(device)
+
+    def stack(c):
+        return torch.stack([torch.as_tensor(pl[c]).to(
+            device=device, dtype=torch.int32) for pl in planes_list])
+
+    F = len(plans)
+    fp = upload(pack_filter_params(plans, flags, masks), device)
+    luma, chroma = filter_planes(stack(0), torch.cat([stack(1), stack(2)]),
+                                 fp, plans[0].sps.ctb_size)
+    return [[luma[f], chroma[f], chroma[F + f]] for f in range(F)]
+
+
+def deblock(plan, planes: list, device) -> list:
+    """Deblocking of one picture's [y, cb, cr] planes (numpy or tensors) ->
+    int32 tensors on `device`.  Counterpart of deblock_tpu."""
+    return _filter_frames([plan], [planes], device, (True, False, False),
+                          masks=False)[0]
+
+
+def sao(plan, planes: list, device) -> list:
+    """SAO of one picture's planes, per the slice header's luma and chroma
+    flags.  Counterpart of sao_tpu."""
+    return _filter_frames([plan], [planes], device,
+                          (False, bool(plan.sh.sao_luma),
+                           bool(plan.sh.sao_chroma)), masks=False)[0]
+
+
+def loop_filters(plan, planes: list, device) -> list:
+    """The in-loop filter chain of one picture: deblocking, SAO, and the
+    bypass / PCM-loop-filter restore.  Counterpart of loop_filters_tpu;
+    bit-exact vs golden apply_loop_filters."""
+    return _filter_frames([plan], [planes], device)[0]
+
+
+def loop_filters_frames(plans: list, planes_list: list, device) -> list:
+    """The chain for F same-resolution pictures in one batched pass;
+    pictures whose filter flags differ go one by one.  Counterpart of
+    loop_filters_tpu_frames."""
+    if len({filter_flags(p) for p in plans}) > 1:
+        return [loop_filters(p, pl, device)
+                for p, pl in zip(plans, planes_list)]
+    return _filter_frames(plans, planes_list, device)

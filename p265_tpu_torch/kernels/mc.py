@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from p265_tpu_torch.tables import CHROMA_FILTER, LUMA_FILTER
-from p265_tpu_torch.kernels import _build
+from p265_tpu_torch.kernels import _build, upload
 
 BIT_DEPTH = 8
 
@@ -452,7 +452,6 @@ def build_inter_pred_device(plan, refs: dict, device):
         poc_list = sorted(refs)
         arrays = mc_arrays_padded(plan, {p: i for i, p in enumerate(poc_list)},
                                   mc_block_counts(plan))
-        from p265_tpu_torch.pipeline.batch_decode import upload
         out = mc_pred_planes(ref_stacks(refs, poc_list, device),
                              upload(arrays, device), shapes, uses_l1(arrays))
     else:

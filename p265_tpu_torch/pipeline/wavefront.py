@@ -7,6 +7,11 @@ the number of sequential steps is the max, not the sum, over planes.
 Every TU carries a wavefront step (1 + the max step of the TUs whose
 samples it predicts from): the TUs of one step are independent.
 
+The per-picture entry points `reconstruct_scan_plane`, `reconstruct_scan`
+and `reconstruct_scan_frames` (counterparts of reconstruct_tpu_scan*) and
+the batch and row-sharded paths all go through `run_scan`: the hoisted
+inter TUs, the scan's residuals and the wavefront over one merged plane.
+
 Shapes are exact.  The JAX package padded them to a power-of-two ladder so
 XLA would not recompile; eager torch has no compile to protect, so each
 step works on exactly its own TUs (a slice of the step-ordered arrays) and
@@ -15,11 +20,13 @@ nothing of the JAX package).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from p265_tpu_torch.plan.frame_plan import PlanePlan, TuBatch
-from p265_tpu_torch.kernels import intra
+from p265_tpu_torch.plan.frame_plan import PlanePlan, TensorPlan, TuBatch
+from p265_tpu_torch.kernels import intra, upload
 from p265_tpu_torch.kernels import itransform
 
 GUARD = 32
@@ -28,6 +35,20 @@ GUARD = 32
 SCAN_FIELDS = ("pos", "ref_ys", "ref_xs", "ref_ok", "mode", "filter_flag",
                "strong_allowed", "dc_edge", "coeffs", "qp", "is_dst",
                "tskip", "bypass", "scale_m")
+
+_SCAN_KEEP = ("pos", "step", "coeffs", "qp", "mode", "c_idx", "is_dst",
+              "tskip", "has_res", "bypass", "scale_m", "inter",
+              "filter_flag", "strong_allowed", "dc_edge", "ref_ys", "ref_xs",
+              "ref_ok", "ok_scan")
+
+
+def segment_offsets(pps_: list) -> list:
+    """First row of each PlanePlan's segment in merge_segments' plane."""
+    offs, off = [], 0
+    for pp in pps_:
+        offs.append(off)
+        off += pp.shape[0] + GUARD
+    return offs
 
 
 def merge_segments(pps_: list):
@@ -38,12 +59,8 @@ def merge_segments(pps_: list):
     dense host prediction plane (the port always computes MC on the
     device)."""
     pw = max(pp.shape[1] for pp in pps_)
-    offs = []
-    off = 0
-    for pp in pps_:
-        offs.append(off)
-        off += pp.shape[0] + GUARD
-    total_h = off - GUARD
+    offs = segment_offsets(pps_)
+    total_h = offs[-1] + pps_[-1].shape[0]
     n_steps = max(pp.n_steps for pp in pps_)
     merged = PlanePlan(0, (total_h, pw), n_steps)
     all_sizes = sorted({log2 for pp in pps_ for log2 in pp.batches})
@@ -171,3 +188,139 @@ def scan_plane(stacked: dict, starts: dict, n_steps: int, plane,
         if after_step is not None:
             after_step(plane)
     return plane
+
+
+def hoist_inter(merged) -> dict | None:
+    """Pull every inter-predicted TU out of the wavefront scan.
+
+    Inter TUs read no in-picture samples (their prediction is the MC
+    plane), so they all sit at step 1; applying them in one pass before
+    the scan keeps the dependency order (intra readers of inter samples sit
+    at step >= 2) and leaves the scan intra-only.  Mutates merged.batches
+    in place; returns {log2: dict(pos, coeffs, qp, tskip, bypass
+    [, scale_m])} of the inter TUs, or None when there are none."""
+    out = {}
+    for log2, b in list(merged.batches.items()):
+        m = np.asarray(b.inter)
+        if not m.any():
+            continue
+        d = dict(pos=b.pos[m].astype(np.int64),
+                 coeffs=b.coeffs[m].astype(np.int16),
+                 qp=b.qp[m].astype(np.int32), tskip=b.tskip[m].astype(bool),
+                 bypass=b.bypass[m].astype(bool))
+        if b.scale_m is not None:
+            d["scale_m"] = b.scale_m[m].astype(np.int32)
+        out[log2] = d
+        keep = ~m
+        merged.batches[log2] = dataclasses.replace(
+            b, **{f: (None if getattr(b, f) is None else getattr(b, f)[keep])
+                  for f in _SCAN_KEEP})
+    return out or None
+
+
+def init_plane(itu, pred, shape, device):
+    """Device: the plane [rows, pw] int32 before the scan.  The residuals
+    of the hoisted inter TUs (itu: hoist_inter's dict as device tensors,
+    or None) in one K1 launch for all sizes and one scatter, then
+    clip(pred + residual) everywhere; intra regions get values that the
+    scan overwrites."""
+    plane = torch.zeros(shape, dtype=torch.int32, device=device)
+    if itu is None:
+        return plane
+    pw = shape[1]
+    res = itransform.batch_residual_grouped(itu)
+    idx, val = [], []
+    for log2, d in itu.items():
+        ar = torch.arange(1 << log2, device=device)
+        idx.append(((d["pos"][:, 0, None, None] + ar[None, :, None]) * pw
+                    + d["pos"][:, 1, None, None]
+                    + ar[None, None, :]).reshape(-1))
+        val.append(res[log2].reshape(-1))
+    res_plane = torch.zeros_like(plane).view(-1)
+    res_plane[torch.cat(idx)] = torch.cat(val)
+    base = pred if pred is not None else plane
+    return (base + res_plane.view(shape)).clamp(0, 255)
+
+
+def scan_fields(tu: dict) -> tuple:
+    """stack_plane's output -> (the per-TU arrays to upload, the host
+    `starts` {log2: [n_steps+1]})."""
+    return ({log2: {k: v for k, v in d.items() if k != "starts"}
+             for log2, d in tu.items()},
+            {log2: d["starts"] for log2, d in tu.items()})
+
+
+def run_scan(itu, fields, starts: dict, n_steps: int, pred, shape, device,
+             after_step=None):
+    """Device: the whole reconstruction of one merged plane.  The hoisted
+    inter TUs (one K1 launch) over the prediction plane `pred` (or None),
+    then the residuals of the scan's TUs (one K1 launch) and the wavefront.
+    itu and fields are device tensors (hoist_inter's and scan_fields'
+    outputs after upload).  Returns the plane [shape] int32."""
+    plane = init_plane(itu, pred, shape, device)
+    return scan_plane(expand(fields, shape[1]), starts, n_steps, plane,
+                      after_step)
+
+
+# ---------------------------------------------------------------------------
+# per-picture entry points: tensor plans -> prefilter planes, no filters
+# ---------------------------------------------------------------------------
+
+
+def attached_pred(pps_: list, offs: list, shape, device):
+    """Device: the prediction plane [shape] int32 that holds every
+    PlanePlan's attached inter_pred (numpy or tensor; build_tensor_plan or
+    attach_pred_planes put it there) at its segment's first row offs[i];
+    None when no PlanePlan has one."""
+    if all(pp.inter_pred is None for pp in pps_):
+        return None
+    pred = torch.zeros(shape, dtype=torch.int32, device=device)
+    for pp, off in zip(pps_, offs):
+        if pp.inter_pred is not None:
+            h, w = pp.shape
+            pred[off:off + h, :w] = torch.as_tensor(pp.inter_pred).to(
+                device=device, dtype=torch.int32)
+    return pred
+
+
+def _reconstruct_merged(pps_: list, device) -> list:
+    """One scan over the merged segments of any PlanePlans -> their planes
+    (int32 tensors on `device`, input order).  A PlanePlan's attached
+    inter_pred is the prediction of its inter TUs."""
+    device = torch.device(device)
+    merged = merge_segments(pps_)
+    if not merged.batches:
+        return [torch.zeros(pp.shape, dtype=torch.int32, device=device)
+                for pp in pps_]
+    offs = segment_offsets(pps_)
+    total_h, pw = merged.shape
+    shape = (total_h + GUARD, pw)
+    pred = attached_pred(pps_, offs, shape, device)
+    itu = upload(hoist_inter(merged), device)
+    fields, starts = scan_fields(stack_plane(merged))
+    plane = run_scan(itu, upload(fields, device), starts, merged.n_steps,
+                     pred, shape, device)
+    return [plane[off:off + pp.shape[0], :pp.shape[1]]
+            for pp, off in zip(pps_, offs)]
+
+
+def reconstruct_scan_plane(pp: PlanePlan, device):
+    """The scan of a single PlanePlan -> its plane, int32 on `device`.
+    Counterpart of reconstruct_tpu_scan_plane."""
+    return _reconstruct_merged([pp], device)[0]
+
+
+def reconstruct_scan(tplan: TensorPlan, device) -> list:
+    """One picture's tensor plan -> its [y, cb, cr] prefilter planes (int32
+    on `device`), the three planes in one merged scan.  Counterpart of
+    reconstruct_tpu_scan."""
+    return _reconstruct_merged(tplan.planes, device)
+
+
+def reconstruct_scan_frames(tplans: list, device) -> list:
+    """F tensor plans -> per frame [y, cb, cr] prefilter planes; frames may
+    differ in resolution, all 3F planes share one scan.  Counterpart of
+    reconstruct_tpu_scan_frames."""
+    flat = _reconstruct_merged([pp for tp in tplans for pp in tp.planes],
+                               device)
+    return [flat[3 * f:3 * f + 3] for f in range(len(tplans))]

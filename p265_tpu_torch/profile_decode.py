@@ -1,31 +1,36 @@
-"""Where the time of one s1080_ldp4 decode goes, on a CUDA card.
+"""Where the time of one decode goes, on a CUDA card.
 
-    python -m p265_tpu_torch.profile_decode
+    python -m p265_tpu_torch.profile_decode [--stream s1080_ra8.265]
+        [--frame-dag-max 4]
 
+The stream is a file of p265_tpu_torch/data (default s1080_ldp4.265).
 After one warm-up pass it prints:
 
-1. per picture and per Stage-B stage, the wall time of TorchDecoder with
-   the device synchronised after every stage (so each stage's host and
-   device time are charged to it; the sum is a serial decode);
+1. per dispatch (a picture, or a frame-DAG group of pictures) and per
+   Stage-B stage, the wall time of TorchDecoder with the device
+   synchronised after every stage (so each stage's host and device time
+   are charged to it; the sum is a serial decode);
 2. for PipelinedTorchDecoder, a torch.profiler window over one whole pass:
    wall time, device time (the sum of kernel and copy time), the device's
    idle share, the number of device operations, and the top kernels.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import os
 import time
 
 import torch
 
-STREAM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
-                      "s1080_ldp4.265")
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
 
-def _stage_table(data: bytes) -> None:
+def _stage_table(data: bytes, dag: int) -> None:
+    from p265_tpu_torch.kernels import loopfilter as lf
     from p265_tpu_torch.pipeline import batch_decode as bd
     from p265_tpu_torch.pipeline import decoder as dm
+    from p265_tpu_torch.pipeline import wavefront as wf
     acc = collections.defaultdict(float)
     steps = []
 
@@ -46,35 +51,40 @@ def _stage_table(data: bytes) -> None:
               (dm, "build_batch", "batch pack"),
               (bd, "upload", "upload"),
               (bd, "mc_pred_planes", "MC"),
-              (bd, "expand", "intra residual"),
-              (bd, "scan_plane", "scan"),
-              (bd, "deblock_luma_vertical", "deblock"),
-              (bd, "deblock_chroma_vertical", "deblock"),
-              (bd, "sao_apply", "SAO")]
+              (wf, "expand", "intra residual"),
+              (wf, "scan_plane", "scan"),
+              (lf, "deblock_luma_vertical", "deblock"),
+              (lf, "deblock_chroma_vertical", "deblock"),
+              (lf, "sao_apply", "SAO")]
     saved = [(m, n, getattr(m, n)) for m, n, _ in stages]
     for m, n, label in stages:
         setattr(m, n, timed(label, getattr(m, n)))
     rows = []
-    orig_run = dm.TorchDecoder._run_recon
+    orig_run = dm.TorchDecoder._run_recon_group
 
-    def run(self, task):
-        acc.clear()
+    def run(self, tasks):
+        # the tensor plans were built while the stream was parsed, before
+        # the group was closed: their time is already in acc
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        orig_run(self, task)
-        rows.append((task["plan"].poc, bool(task["plan"].pus), steps[-1],
-                     time.perf_counter() - t0, dict(acc)))
+        orig_run(self, tasks)
+        rows.append(("+".join(str(t["plan"].poc) for t in tasks),
+                     bool(tasks[0]["plan"].pus), steps[-1],
+                     time.perf_counter() - t0 + acc["tensor plan"],
+                     dict(acc)))
+        acc.clear()
 
-    dm.TorchDecoder._run_recon = run
+    dm.TorchDecoder._run_recon_group = run
     try:
-        dm.TorchDecoder("cuda").decode_stream(data)
+        dm.TorchDecoder("cuda", frame_dag_max=dag).decode_stream(data)
     finally:
-        dm.TorchDecoder._run_recon = orig_run
+        dm.TorchDecoder._run_recon_group = orig_run
         for m, n, f in saved:
             setattr(m, n, f)
     labels = list(dict.fromkeys(label for _, _, label in stages))
-    print("serial TorchDecoder, device synchronised after every stage (s):")
-    print("poc kind steps total " + " | ".join(labels) + " | rest")
+    print(f"serial TorchDecoder(frame_dag_max={dag}), device synchronised "
+          "after every stage (s):")
+    print("pocs kind steps total " + " | ".join(labels) + " | rest")
     for poc, inter, n_steps, total, a in rows:
         parts = [a.get(lb, 0.0) for lb in labels]
         print(f"{poc} {'P' if inter else 'I'} {n_steps} {total:.4f} "
@@ -82,11 +92,11 @@ def _stage_table(data: bytes) -> None:
               + f" | {total - sum(parts):.4f}")
 
 
-def _profile_window(data: bytes) -> None:
+def _profile_window(data: bytes, dag: int) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
-    dec = PipelinedTorchDecoder("cuda")
+    dec = PipelinedTorchDecoder("cuda", frame_dag_max=dag)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -106,15 +116,20 @@ def _profile_window(data: bytes) -> None:
               f"{e.key[:90]}")
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--stream", default="s1080_ldp4.265")
+    ap.add_argument("--frame-dag-max", type=int, default=1)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: needs a CUDA device")
     from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
-    with open(STREAM, "rb") as f:
+    with open(os.path.join(DATA, args.stream), "rb") as f:
         data = f.read()
     PipelinedTorchDecoder("cuda").decode_stream(data)   # warm-up
-    _stage_table(data)
-    _profile_window(data)
+    print(f"{args.stream}, frame_dag_max={args.frame_dag_max}")
+    _stage_table(data, args.frame_dag_max)
+    _profile_window(data, args.frame_dag_max)
 
 
 if __name__ == "__main__":

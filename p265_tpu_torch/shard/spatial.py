@@ -41,16 +41,16 @@ import torch
 import torch.distributed as dist
 
 from p265_tpu_torch.golden.decoder import DecoderBase, bypass_pixel_masks
+from p265_tpu_torch.kernels import upload
 from p265_tpu_torch.kernels.loopfilter import (
     chroma_edge_params, deblock_chroma_vertical, deblock_luma_vertical,
-    luma_edge_params)
+    filter_flags, luma_edge_params)
 from p265_tpu_torch.kernels.mc import (mc_arrays_padded, mc_block_counts,
                                        mc_pred_planes, ref_stacks, stamp_pcm,
                                        uses_l1)
-from p265_tpu_torch.pipeline.batch_decode import (hoist_inter, init_plane,
-                                                  upload)
-from p265_tpu_torch.pipeline.wavefront import (GUARD, expand, merge_segments,
-                                               scan_plane, stack_plane)
+from p265_tpu_torch.pipeline.wavefront import (GUARD, hoist_inter,
+                                               merge_segments, run_scan,
+                                               scan_fields, stack_plane)
 from p265_tpu_torch.plan.frame_plan import PlanePlan, build_tensor_plan
 from p265_tpu_torch.shard.filters import sao_sharded
 from p265_tpu_torch.shard.mesh import (COUNTS, all_gather,
@@ -148,14 +148,8 @@ def reconstruct_spatial(tplan, group, device, pred_planes=None) -> list:
                 blk = local_rows(_planes([p], device)[0], rank, hl)
                 pred[o + 1:o + 1 + hl, :blk.shape[1]] = blk
 
-    itu = hoist_inter(merged)
-    tu = stack_plane(merged)
-    plane = init_plane(None if itu is None else upload(itu, device), pred,
-                       shape, device)
-    stacked = expand({log2: upload({k: v for k, v in d.items()
-                                    if k != "starts"}, device)
-                      for log2, d in tu.items()}, pw)
-    starts = {log2: d["starts"] for log2, d in tu.items()}
+    itu = upload(hoist_inter(merged), device)
+    fields, starts = scan_fields(stack_plane(merged))
     top = torch.as_tensor(offs, device=device)        # halo rows
     bottom = top + torch.as_tensor(hls, device=device)  # last owned rows
 
@@ -164,7 +158,8 @@ def reconstruct_spatial(tplan, group, device, pred_planes=None) -> list:
         if rank > 0:
             plane[top] = g[rank - 1]
 
-    scan_plane(stacked, starts, merged.n_steps, plane, exchange)
+    plane = run_scan(itu, upload(fields, device), starts, merged.n_steps,
+                     pred, shape, device, exchange)
     return _gather_blocks([plane[o + 1:o + 1 + hl, :pp.shape[1]]
                            for o, hl, pp in zip(offs, hls, tplan.planes)],
                           [pp.shape for pp in tplan.planes], group)
@@ -335,9 +330,10 @@ def loop_filters_spatial(plan, planes: list, group, device) -> list:
     device = torch.device(device)
     masks = bypass_pixel_masks(plan)
     orig = out = _planes(planes, device)
-    if not plan.sh.deblocking_filter_disabled:
+    deblock_on, sao_luma, sao_chroma = filter_flags(plan)
+    if deblock_on:
         out = deblock_spatial(plan, out, group, device)
-    if plan.sps.sao_enabled and (plan.sh.sao_luma or plan.sh.sao_chroma):
+    if sao_luma or sao_chroma:
         out = sao_sharded(plan, out, group, device)
     if masks:
         out = [torch.where(torch.from_numpy(m).to(device), o, p)

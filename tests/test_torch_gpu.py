@@ -188,3 +188,24 @@ def test_pipelined_decoder_on_cuda_matches_golden(cuda, name):
             assert np.array_equal(f.planes[c], g.planes[c]), (f.poc, c)
             assert np.array_equal(f.prefilter[c].cpu().numpy(),
                                   g.prefilter[c]), (f.poc, c)
+
+
+def test_frame_dag_on_cuda_matches_golden(cuda):
+    """frame_dag_max=4 on the card: sibling B pictures share one pass, K1
+    and K2 run, every plane equals golden."""
+    sps = SPS(pic_width=192, pic_height=128, temporal_mvp_enabled=True)
+    pps = PPS(init_qp=32, sign_data_hiding=True)
+    data = Encoder(sps, pps, qp=32, seed=11).encode_sequence(
+        make_moving_sequence(192, 128, 8, seed=11), "RA")[0]
+    gold = GoldenDecoder().decode_stream(data)
+    _build.reset_launch_counts()
+    dec = PipelinedTorchDecoder(cuda, frame_dag_max=4)
+    got = dec.decode_stream(data)
+    assert dec.stats.get("dag_batched", 0) >= 2
+    assert _build.LAUNCHES["itransform"] > 0 and _build.LAUNCHES["mc"] > 0
+    assert [f.poc for f in got] == [g.poc for g in gold]
+    for f, g in zip(got, gold):
+        for c in range(3):
+            assert np.array_equal(f.planes[c], g.planes[c]), (f.poc, c)
+            assert np.array_equal(f.prefilter[c].cpu().numpy(),
+                                  g.prefilter[c]), (f.poc, c)

@@ -1,7 +1,8 @@
 """The port's own copy of the host side against the JAX package's, on the CPU.
 
 p265_tpu_torch carries verbatim copies of the JAX-free host modules of
-p265_tpu (parse, DPB, golden decoder, tensor plans, tables), so that it
+p265_tpu (parse, DPB, golden decoder, tensor plans, tables, the test
+encoder), so that it
 imports nothing of p265_tpu.  Each copy must equal its original after the
 import rewrite `p265_tpu` -> `p265_tpu_torch`, apart from the deviations
 listed here and in a comment at the top of the copy (two code changes, the
@@ -9,7 +10,8 @@ first of which sends attach_pred_planes to the port's device MC, and three
 reworded comments); the two golden
 decoders must decode the same planes and the two tensor plans must be
 equal, field by field; the committed test streams must be the ones the JAX
-package's encoder makes for their seeds.
+package's encoder makes for their seeds, and the port's copy of the encoder
+must write the same bytes.
 """
 import dataclasses
 import hashlib
@@ -27,8 +29,11 @@ from p265_tpu.plan.frame_plan import build_tensor_plan as jax_tensor_plan
 from p265_tpu.testgen.encoder import (Encoder, IntraEncoder,
                                       make_moving_sequence, make_test_image)
 from p265_tpu_torch.golden.decoder import GoldenDecoder as PortGolden
+from p265_tpu_torch.hls import nal as PortNal
+from p265_tpu_torch.hls import params as port_params
 from p265_tpu_torch.plan.frame_plan import (
     build_tensor_plan as port_tensor_plan)
+from p265_tpu_torch.testgen import encoder as port_encoder
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "p265_tpu_torch", "data")
@@ -43,7 +48,8 @@ COPIED = ("tables.py", "yuv.py",
           "golden/intra.py", "golden/inter.py", "golden/transform.py",
           "golden/mv.py", "golden/deblock.py", "golden/sao.py",
           "dpb/__init__.py", "dpb/dpb.py", "plan/__init__.py",
-          "plan/frame_plan.py")
+          "plan/frame_plan.py", "golden/trace.py", "testgen/__init__.py",
+          "testgen/encoder.py")
 
 _HOST_MC = ("from p265_tpu_torch.golden.recon import build_inter_pred\n",
             "pred = build_inter_pred(plan, refs or {})\n")
@@ -290,3 +296,36 @@ def test_committed_small_streams_match_the_encoder(fn, structure, seed,
         data = f.read()
     assert hashlib.sha256(data).hexdigest() == _sums()[fn]
     assert data == _gop(structure, 5, seed, qp=32, sps_kw=sps_kw)
+
+
+def test_port_encoder_writes_the_same_bytes():
+    """A 64x64 LDP stream of 3 frames from each package's encoder."""
+    def encode(enc_mod, params_mod):
+        sps = params_mod.SPS(pic_width=64, pic_height=64,
+                             temporal_mvp_enabled=True)
+        pps = params_mod.PPS(init_qp=32, sign_data_hiding=True)
+        return enc_mod.Encoder(sps, pps, qp=32, seed=6).encode_sequence(
+            enc_mod.make_moving_sequence(64, 64, 3, seed=6),
+            structure="LDP")
+    import p265_tpu.hls.params as jax_params
+    import p265_tpu.testgen.encoder as jax_encoder
+    want, want_rec = encode(jax_encoder, jax_params)
+    got, got_rec = encode(port_encoder, port_params)
+    assert got == want and len(got) > 100
+    assert _same(got_rec, want_rec)
+
+
+@pytest.mark.parametrize("fn", ["s1080_ldp4.265", "s1080_ra8.265"])
+def test_committed_1080p_streams_match_their_sha256(fn):
+    """The 1080p streams take the pure-Python encoder many minutes, so they
+    are held to their checksums only (tools/make_streams.py names their
+    generators: _gop(1920, 1080, n, structure), seed 5, QP 32)."""
+    with open(os.path.join(DATA, fn), "rb") as f:
+        data = f.read()
+    assert hashlib.sha256(data).hexdigest() == _sums()[fn]
+    units = PortNal.split_nal_units(data)
+    sps = next(port_params.parse_sps(u.rbsp) for u in units
+               if u.nal_type == PortNal.NAL_SPS)
+    assert (sps.pic_width, sps.pic_height) == (1920, 1080)
+    assert sum(1 for u in units if PortNal.is_slice_nal(u.nal_type)) == int(
+        fn.split(".")[0][-1])

@@ -1,10 +1,12 @@
 """The port must run where JAX is not installed, on its own.
 
 A fresh interpreter imports every p265_tpu_torch module (the sharded
-paths of p265_tpu_torch.shard among them) and decodes the
-committed 96x64 LDP stream on CPU tensors against the port's own golden
-decoder; jax, jaxlib and ml_dtypes (on the GPU machine any of them would be
-an import crash) and every module of the JAX package p265_tpu must stay out
+paths of p265_tpu_torch.shard, the test encoder and the CLI among them),
+loads the per-stage entry points and decodes the committed 96x64 LDP
+stream on CPU tensors (fused, unfused and with frame-DAG batching) against
+the port's own golden decoder; a second one runs every CLI subcommand;
+jax, jaxlib and ml_dtypes (on the GPU machine any of them would be an
+import crash) and every module of the JAX package p265_tpu must stay out
 of sys.modules.  Also: no source line of the package or of chip_smoke.py
 imports them, and chip_smoke.py exits nonzero with no result line when no
 CUDA device is present or when it stands alone, without the repo.
@@ -31,21 +33,61 @@ for name in mods:
 shard = {"p265_tpu_torch.shard." + m for m in ("mesh", "filters", "spatial",
                                                "decoder", "distributed")}
 assert shard <= set(mods), sorted(shard - set(mods))
+new = {"p265_tpu_torch." + m for m in ("testgen.encoder", "golden.trace",
+                                       "cli")}
+assert new <= set(mods), sorted(new - set(mods))
+from p265_tpu_torch.kernels.intra import predict_batch
+from p265_tpu_torch.kernels.loopfilter import (deblock, loop_filters,
+                                               loop_filters_frames, sao)
+from p265_tpu_torch.pipeline.batch_decode import decode_batch
+from p265_tpu_torch.pipeline.decoder import plan_frame_groups
+from p265_tpu_torch.pipeline.wavefront import (reconstruct_scan,
+                                               reconstruct_scan_frames,
+                                               reconstruct_scan_plane)
 from p265_tpu_torch.golden.decoder import GoldenDecoder
 from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
 with open("p265_tpu_torch/data/s96x64_ldp5.265", "rb") as f:
     data = f.read()
 gold = GoldenDecoder().decode_stream(data)
-got = PipelinedTorchDecoder("cpu").decode_stream(data)
-assert len(got) == len(gold) == 5
-for f, g in zip(got, gold):
-    for c in range(3):
-        assert np.array_equal(f.planes[c], g.planes[c])
+for kw in ({}, dict(fused=False), dict(frame_dag_max=4)):
+    got = PipelinedTorchDecoder("cpu", **kw).decode_stream(data)
+    assert len(got) == len(gold) == 5
+    for f, g in zip(got, gold):
+        for c in range(3):
+            assert np.array_equal(f.planes[c], g.planes[c])
 bad = sorted(m for m in ("jax", "jaxlib", "ml_dtypes") if m in sys.modules)
 ref = sorted(m for m in sys.modules
              if m == "p265_tpu" or m.startswith("p265_tpu."))
 print("MODULES", len(mods), "REF", ",".join(ref) or "none",
       "JAX", ",".join(bad) or "none")
+"""
+
+# every CLI subcommand, in one interpreter: encode, info, decode with both
+# backends, pipelined, resilient, with metrics
+_CLI_CHILD = r"""
+import contextlib, io, json, os, sys, tempfile
+from p265_tpu_torch.cli import main
+with tempfile.TemporaryDirectory() as d:
+    bit, out, met = (os.path.join(d, n) for n in ("t.265", "t.yuv", "m.jsonl"))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(["encode", "-o", bit, "--size", "64x64", "--qp", "34",
+                     "--gop", "RA", "--frames", "3"]) == 0
+        assert main(["info", "-i", bit]) == 0
+        assert main(["decode", "-i", bit, "--backend", "golden",
+                     "--md5"]) == 0
+        assert main(["decode", "-i", bit, "-o", out, "--device", "cpu",
+                     "--md5", "--pipelined", "--resilient", "--metrics",
+                     met]) == 0
+        assert main(["decode", "-i", bit, "--device", "cpu", "--md5"]) == 0
+    md5 = [ln for ln in buf.getvalue().splitlines() if ln.startswith("MD5:")]
+    assert len(md5) == 3 and len(set(md5)) == 1, md5
+    assert os.path.getsize(out) == 64 * 64 * 3 // 2 * 3
+    assert json.loads(open(met).read())["frames"] == 3
+bad = sorted(m for m in ("jax", "jaxlib", "ml_dtypes") if m in sys.modules)
+ref = sorted(m for m in sys.modules
+             if m == "p265_tpu" or m.startswith("p265_tpu."))
+print("REF", ",".join(ref) or "none", "JAX", ",".join(bad) or "none")
 """
 
 
@@ -66,6 +108,13 @@ def test_port_imports_and_decodes_without_jax():
     assert n_mods >= 30, line
     assert " REF none " in line, line
     assert line.endswith("JAX none"), line
+
+
+def test_cli_subcommands_run_without_jax():
+    r = subprocess.run([sys.executable, "-c", _CLI_CHILD], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "REF none JAX none"
 
 
 def test_no_source_line_imports_jax():
