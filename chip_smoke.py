@@ -11,7 +11,10 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    once) and links them, timed.
 3. kernels vs plain: each grouped kernel against its plain torch version on
    the card, torch.equal, over sweeps of sizes, modes and MVs (to 300 px
-   outside the picture), each sweep packed as one multi-group launch.
+   outside the picture), each sweep packed as one multi-group launch; the
+   scan kernel against scan_packed_ref on random scans (every mode and
+   size, every flag, unavailable references outside the plane, empty
+   steps, flat and non-flat 32x32 edges), and a split run against one.
 4. small streams: the committed 96x64 LDP, RA (bi-pred) and PCM LDP
    streams (PCM CUs in the I picture and in every P picture, whose MC runs
    through K2), PipelinedTorchDecoder on cuda vs the port's GoldenDecoder,
@@ -30,13 +33,14 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    --metrics; golden's MD5 and the metrics keys.
 9. s1080_ldp4 (1920x1080, IDR + 3 P, QP 32; p265_tpu_torch/data): one
    cold pass bit-exact against GoldenDecoder on every plane, with the
-   kernel launch counters reset just before it (3 MC and 7 residual
-   launches a pass); then 3 warm passes.
+   kernel launch counters reset just before it (3 MC, 7 residual and 4
+   scan launches a pass); then 3 warm passes.
 10. frame DAG at full width: RA_STREAM (1920x1080 random access, QP 32,
    bi-prediction) with frame_dag_max 1 and 4, one cold and three warm
    passes each, in turns; every pass bit-exact against golden on every
    plane before and after the filters; dag_batched, the K1/K2 launches a
-   pass, the scan steps of every dispatch, and fps with spread for both.
+   pass, the scan steps of every dispatch (one scan launch each: 8 at 1,
+   5 at 4), and fps with spread for both.
 11. sharded: one process a rank (NCCL with one rank a card where there are
    two cards or more, else two ranks sharing cuda:0 over gloo).  The space
    axis decodes every picture of s1080_ldp4 row-sharded over the ranks
@@ -44,15 +48,21 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    equal to phase 5's golden ones on every rank; the stream axis decodes
    the three small streams and s1080_ldp4, split over the ranks, through
    decode_segments_production, bit-exact.  Per rank: the wall time,
-   collectives and bytes of each picture, and the K1/K2 launches (counters
-   reset just before each axis), which must both be above 0.
+   collectives and bytes of each picture, and the kernels' launches
+   (counters reset just before each axis), which must all be above 0; the
+   space axis launches the scan once a wavefront step, the stream axis
+   once a picture.
 12. per-kernel time against the plain version and the bound, over every
    call the main path made on one pass of s1080_ldp4: the CUDA-event
    window of the calls (`ms`, host launch gaps included) and the kernel's
-   own device time from torch.profiler (`device_ms`).
+   own device time from torch.profiler (`device_ms`).  The scan row: every
+   main-path scan equal to its plain version, the window of scan_plane in
+   turns with the plain version (one run per turn), the device time, the
+   bound by bytes, and the barrier floor (`floor_ms`: the same launches
+   computing no TU).
 
 Every path from phase 4 on is driven with the kernels' launch counts set
-to 0 just before it and read just after; both must be above 0 (launches
+to 0 just before it and read just after; all must be above 0 (launches
 made to compare a kernel with its plain version are outside those windows).
 Nothing of JAX and nothing of the JAX package p265_tpu may be imported.
 The line before the last is the kernels' JSON record; the last line is
@@ -83,6 +93,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, launches a pass)
                    "p265_tpu/kernels/pallas_itransform.py:39", 7),
     "mc": ("p265_tpu_torch/csrc/mc.cu", "p265_tpu/kernels/pallas_mc.py:44",
            3),
+    "scan": ("p265_tpu_torch/csrc/scan.cu",
+             "p265_tpu/pipeline/wavefront.py:455 (lax.scan, XLA; not a "
+             "Pallas kernel)", 4),
 }
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, and int32
 # multiply-adds/s on the CUDA cores (132 SMs x 64 int32 lanes x 1.98 GHz)
@@ -186,9 +199,81 @@ def _max_err(got, want, name: str) -> int:
     return err
 
 
+def _scan_case(rng, dev, n_steps: int = 48, per_size: int = 140):
+    """A random scan over a random 1024x1024 int32 plane -> (stacked,
+    starts, n_steps, plane): per size 4..32, `per_size` TUs over the steps
+    (a fifth of the steps left empty), each mode 0..34 at least 4 times,
+    random filter_flag / strong_allowed / dc_edge, residuals to +-300.
+    Every TU writes a 32x32 tile of its own (rows 32 on), so no two TUs
+    of a step overlap; its references are anywhere but in the tiles its
+    own step writes, all available, none, or a random mix, and a third of
+    the unavailable ones point outside the plane.  Row 0 is a ramp that
+    no TU writes: every third 32x32 TU reads it on both edges, so the
+    strong-smoothing flatness test passes there (and fails elsewhere)."""
+    import torch
+    rows = cols = 1024
+    tile = 32
+    tiles_x = cols // tile
+    plane = rng.integers(0, 256, (rows, cols)).astype(np.int32)
+    plane[0] = 50 + np.arange(cols) // 8
+    empty = set(rng.choice(n_steps, n_steps // 5, replace=False).tolist())
+    live = np.array([k for k in range(n_steps) if k not in empty])
+    steps = {log2: np.sort(rng.choice(live, per_size))
+             for log2 in (2, 3, 4, 5)}
+    order = rng.permutation((rows // tile - 1) * tiles_x)
+    own, t = {}, 0       # the tile of every TU; the tiles of every step
+    by_step = {k: set() for k in range(n_steps)}
+    for log2, st in steps.items():
+        own[log2] = order[t:t + len(st)]
+        t += len(st)
+        for k, tl in zip(st, own[log2]):
+            by_step[int(k)].add(int(tl))
+    stacked, starts = {}, {}
+    for log2, st in steps.items():
+        s, n = 1 << log2, len(st)
+        nr = 4 * s + 2
+        ty, tx = own[log2] // tiles_x + 1, own[log2] % tiles_x
+        pos = np.stack([ty * tile + rng.integers(0, tile // s, n) * s,
+                        tx * tile + rng.integers(0, tile // s, n) * s], 1)
+        idx = rng.integers(0, rows * cols, (n, nr))
+        for u in range(n):
+            mine = by_step[int(st[u])]
+            while True:     # no reference inside a tile of the TU's step
+                y, x = idx[u] // cols, idx[u] % cols
+                tl = (y // tile - 1) * tiles_x + x // tile
+                bad = (y >= tile) & np.isin(tl, list(mine))
+                if not bad.any():
+                    break
+                idx[u, bad] = rng.integers(0, rows * cols, int(bad.sum()))
+        r = rng.random(n)
+        ok = np.where((r < 0.4)[:, None], True, np.where(
+            (r < 0.5)[:, None], False, rng.random((n, nr)) < 0.7))
+        far = ~ok & (rng.random((n, nr)) < 0.33)
+        idx[far] = rng.choice([-7, -3 * cols, rows * cols + 11, 10 ** 12],
+                              int(far.sum()))
+        mode = rng.permutation(np.arange(n) % 35).astype(np.int32)
+        ff, sa, de = (rng.random(n) < 0.5 for _ in range(3))
+        if log2 == 5:
+            flat = np.arange(n) % 3 == 0
+            x0 = rng.integers(0, cols - nr // 2, (n, 2))
+            ramp = np.concatenate([x0[:, :1] + np.arange(nr // 2),
+                                   x0[:, 1:] + np.arange(nr // 2)], 1)
+            idx[flat], ok[flat], ff[flat] = ramp[flat], True, True
+        stacked[log2] = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                         for k, v in dict(
+            ref_idx=idx.astype(np.int64), ref_ok=ok, mode=mode,
+            filter_flag=ff, strong_allowed=sa, dc_edge=de,
+            pos=pos.astype(np.int64),
+            residual=rng.integers(-300, 300, (n, s, s)).astype(np.int32),
+        ).items()}
+        starts[log2] = np.searchsorted(st, np.arange(n_steps + 1))
+    return stacked, starts, n_steps, torch.from_numpy(plane).to(dev)
+
+
 def phase_compare(errs: dict) -> None:
     import torch
     from p265_tpu_torch.kernels import itransform, mc
+    from p265_tpu_torch.pipeline import wavefront as wf
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
     for scale in (False, True):
@@ -213,6 +298,26 @@ def phase_compare(errs: dict) -> None:
         errs["mc"] = max(errs["mc"], _max_err(got, want, f"mc far={far}"))
     log("mc == plain: 6 geometries x 2 lists in one launch, n=4096 each, "
         "MVs up to 8 px and up to 300 px beyond the picture")
+    for case in range(3):
+        stacked, starts, n, plane = _scan_case(rng, dev)
+        packed = wf.pack_scan(stacked, starts, n, dev)
+        want = wf.scan_packed_ref(packed, plane.clone(), 0, n)
+        got = wf.scan_packed(packed, plane.clone(), 0, n)
+        k = int(rng.integers(1, n))
+        split = wf.scan_packed(packed, wf.scan_packed(
+            packed, plane.clone(), 0, k), k, n)
+        torch.cuda.synchronize()
+        require(not torch.equal(want, plane), "scan sweep wrote nothing")
+        errs["scan"] = max(errs["scan"], _max_err(
+            [got], [want], f"scan sweep {case}"))
+        require(torch.equal(split, got),
+                f"scan sweep {case}: [0, {k}) + [{k}, {n}) differs from "
+                f"[0, {n})")
+    log("scan == plain: 3 random scans of 48 steps (a fifth empty), 140 "
+        "TUs a size 4..32, every mode, random smoothing / strong / edge "
+        "flags and ref_ok patterns (unavailable references outside the "
+        "plane too), flat and non-flat 32x32 edges; a split run [0, k) + "
+        "[k, n) equal to one run")
 
 
 def _stream_bytes(fn: str) -> bytes:
@@ -256,6 +361,8 @@ def phase_small_streams() -> None:
         frames = PipelinedTorchDecoder("cuda").decode_stream(data)
         launches = dict(_build.LAUNCHES)
         _bit_exact(frames, gold, f"96x64 {structure}")
+        require(all(launches[k] > 0 for k in KERNELS),
+                f"96x64 {structure}: a kernel never launched: {launches}")
         if structure == "RA":
             require(any(p.motion.uses(0) and p.motion.uses(1)
                         for g in gold for p in g.plan.pus),
@@ -273,7 +380,7 @@ def phase_small_streams() -> None:
 
 def _counted(what: str, fn):
     """Run fn() with the kernels' launch counts set to 0 just before and
-    read just after; both kernels must have launched.  -> (result,
+    read just after; every kernel must have launched.  -> (result,
     launches)."""
     from p265_tpu_torch.kernels import _build
     _build.reset_launch_counts()
@@ -284,22 +391,33 @@ def _counted(what: str, fn):
     return out, launches
 
 
+class _Dispatches:
+    """Record (pocs, scan steps) of every batch that build_batch packs
+    while the block runs; a batch with no scan TU bucket counts 0 steps
+    (scan_plane launches nothing for it)."""
+
+    def __enter__(self):
+        from p265_tpu_torch.pipeline import decoder as dm
+        self.dm, self.orig, self.seen = dm, dm.build_batch, []
+
+        def spy(tplans, plans, **kw):
+            batch = self.orig(tplans, plans, **kw)
+            self.seen.append(([p.poc for p in plans],
+                              batch["n_steps"] if batch["tu"] else 0))
+            return batch
+        dm.build_batch = spy
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.dm.build_batch = self.orig
+
+
 def _dag_pass(data: bytes, dag: int) -> dict:
     """One pass of PipelinedTorchDecoder("cuda", frame_dag_max=dag): wall
     seconds to every plane on the host, the frames, dag_batched, the
     kernels' launches, and (pocs, scan steps) of every dispatch."""
-    from p265_tpu_torch.pipeline import decoder as dm
     from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
-    dispatches = []
-    orig = dm.build_batch
-
-    def spy(tplans, plans, **kw):
-        batch = orig(tplans, plans, **kw)
-        dispatches.append(([p.poc for p in plans], batch["n_steps"]))
-        return batch
-
-    dm.build_batch = spy
-    try:
+    with _Dispatches() as dispatches:
         dec = PipelinedTorchDecoder("cuda", frame_dag_max=dag)
 
         def run():
@@ -307,8 +425,6 @@ def _dag_pass(data: bytes, dag: int) -> dict:
             frames = dec.decode_stream(data)
             return frames, time.perf_counter() - t0
         (frames, seconds), launches = _counted(f"frame_dag_max={dag}", run)
-    finally:
-        dm.build_batch = orig
     return dict(frames=frames, seconds=seconds, launches=launches,
                 batched=dec.stats.get("dag_batched"), dispatches=dispatches,
                 stats=_stats(dec))
@@ -353,6 +469,10 @@ def phase_frame_dag(fn: str, warm: int) -> dict:
         require(p["launches"]["mc"] == n_inter,
                 f"{what}: {p['launches']['mc']} K2 launches for {n_inter} "
                 "inter pictures")
+        scans = sum(1 for _, steps in p["dispatches"] if steps > 0)
+        require(p["launches"]["scan"] == scans,
+                f"{what}: {p['launches']['scan']} scan launches for {scans} "
+                "dispatches with scan steps")
         cold = i < 2
         log(f"frame_dag_max={dag} {'cold' if cold else 'warm'} pass: "
             f"{p['seconds']:.3f} s ({p['stats']}), launches "
@@ -371,7 +491,8 @@ def phase_frame_dag(fn: str, warm: int) -> dict:
     steps = {dag: sum(s for _, s in out[dag]["dispatches"]) for dag in out}
     log(f"{what}: scan steps a pass {steps[1]} ungrouped, {steps[4]} "
         f"grouped; K1 launches {out[1]['launches']['itransform']} / "
-        f"{out[4]['launches']['itransform']}, K2 {n_inter} / {n_inter}")
+        f"{out[4]['launches']['itransform']}, K2 {n_inter} / {n_inter}, "
+        f"scan {out[1]['launches']['scan']} / {out[4]['launches']['scan']}")
     for dag, ts in times.items():
         if ts:
             best = min(ts)
@@ -550,13 +671,15 @@ def phase_1080() -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    dec = PipelinedTorchDecoder("cuda")
-    t0 = time.perf_counter()
-    frames = dec.decode_stream(data)
-    cold = time.perf_counter() - t0
+    with _Dispatches() as dispatches:
+        dec = PipelinedTorchDecoder("cuda")
+        t0 = time.perf_counter()
+        frames = dec.decode_stream(data)
+        cold = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     log(f"cold pass: {cold:.3f} s ({_stats(dec)})")
-    log(f"launches in the cold pass: {launches}")
+    log(f"launches in the cold pass: {launches}; scan steps a picture "
+        f"{ {pocs[0]: steps for pocs, steps in dispatches} }")
     require(all(launches[k] > 0 for k in KERNELS),
             f"a kernel of the main path never launched: {launches}")
     require(all(launches[k] == KERNELS[k][2] for k in KERNELS),
@@ -570,6 +693,7 @@ def phase_1080() -> tuple:
     require(len(frames) == N_FRAMES, f"expected {N_FRAMES} frames")
     from p265_tpu_torch.profile_shard import planes_of
     gold_planes = planes_of(gold)
+    steps = [st for _, st in dispatches]
     del frames, gold, dec
 
     times = []
@@ -587,12 +711,14 @@ def phase_1080() -> tuple:
         f"{N_FRAMES / best:.4f} fps (best), spread "
         f"{(max(times) - best) / best * 100:.1f}%; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    return launches, gold_planes
+    return launches, gold_planes, steps
 
 
-def phase_sharded(gold_planes: dict) -> dict:
+def phase_sharded(gold_planes: dict, steps: list) -> dict:
     """The space and stream axes over the ranks; returns per axis and rank
-    the kernel launches."""
+    the kernel launches.  steps: the scan steps of each s1080_ldp4
+    picture, which the space axis runs one scan launch each (the halo
+    exchange follows every step)."""
     import torch
     from p265_tpu_torch.profile_shard import (run_ranks, space_axis,
                                               stream_axis, transport)
@@ -626,38 +752,50 @@ def phase_sharded(gold_planes: dict) -> dict:
                     f"rank {rank} {axis} axis: a kernel never launched: "
                     f"{launches}")
             out[axis].append(launches)
+        require(sp["launches"]["scan"] == sum(steps),
+                f"rank {rank} space axis: {sp['launches']['scan']} scan "
+                f"launches for {sum(steps)} scan steps")
+        pics = sum(f for _, _, f in stream["segments"])
+        require(stream["launches"]["scan"] == pics,
+                f"rank {rank} stream axis: {stream['launches']['scan']} scan "
+                f"launches for {pics} pictures")
     log(f"sharded phase: {time.perf_counter() - t0:.2f} s")
     return out
 
 
 def _capture_main_path(data: bytes) -> dict:
-    """Record the arguments of every grouped kernel call of one pass."""
+    """Record the arguments of every grouped kernel call and every scan of
+    one pass; a scan's plane is recorded as it stood before the scan."""
     from p265_tpu_torch.kernels import itransform, mc
+    from p265_tpu_torch.pipeline import wavefront as wf
     from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
-    calls = {"itransform": [], "mc": []}
+    calls = {"itransform": [], "mc": [], "scan": []}
     orig = {"itransform": itransform.batch_residual_grouped,
-            "mc": mc.mc_blocks_grouped}
+            "mc": mc.mc_blocks_grouped, "scan": wf.scan_plane}
 
     def spy(name):
         def f(*a, **k):
-            calls[name].append((a, k))
+            calls[name].append(
+                (a if name != "scan" else (*a[:3], a[3].clone()), k))
             return orig[name](*a, **k)
         return f
 
     itransform.batch_residual_grouped = spy("itransform")
     mc.mc_blocks_grouped = spy("mc")
+    wf.scan_plane = spy("scan")
     try:
         PipelinedTorchDecoder("cuda").decode_stream(data)
     finally:
         itransform.batch_residual_grouped = orig["itransform"]
         mc.mc_blocks_grouped = orig["mc"]
+        wf.scan_plane = orig["scan"]
     return calls
 
 
-def _time_calls(fn, calls, reps: int = 10) -> float:
+def _time_calls(fn, calls, reps: int = 10, warm: int = 2) -> float:
     """Median ms of running every call once, by CUDA events."""
     import torch
-    for _ in range(2):
+    for _ in range(warm):
         for a, k in calls:
             fn(*a, **k)
     torch.cuda.synchronize()
@@ -721,6 +859,95 @@ def _work_itransform(groups) -> tuple:
     return nbytes, ops
 
 
+def _work_scan(stacked: dict, starts: dict, n_steps: int) -> tuple:
+    """(bytes, int32 multiply-adds) of one scan: per TU its reference
+    indices (int64) and ref_ok read once, the available reference samples
+    (int32) gathered once, its mode, flags and position, its residual read
+    and its s x s output written, plus the step starts; planar costs 4
+    multiply-adds a sample, angular 2, and a smoothed reference 2."""
+    nbytes, ops = 4 * len(starts) * (n_steps + 1), 0
+    for log2, d in stacked.items():
+        s = 1 << log2
+        n = int(starts[log2][n_steps])
+        if not n:
+            continue
+        ok = d["ref_ok"][:n]
+        mode = d["mode"][:n]
+        nbytes += (ok.numel() * 9 + int(ok.sum()) * 4
+                   + n * (4 + 3 + 16 + 8 * s * s))
+        ops += (s * s * (4 * int((mode == 0).sum())
+                         + 2 * int((mode >= 2).sum()))
+                + 2 * (4 * s + 2) * int(d["filter_flag"][:n].sum()))
+    return nbytes, ops
+
+
+def _scan_row(calls: list, launches: dict, sharded: dict, dag: dict,
+              errs: dict) -> dict:
+    """The scan kernel over every scan of one s1080_ldp4 pass: each equal
+    to its plain version; the window of scan_plane (packing included) in
+    turns with the plain version (one run per turn: the plain I picture
+    takes seconds); the kernel's device time; its bound; and the barrier
+    floor, the device time of the same launches computing no TU."""
+    import torch
+    from p265_tpu_torch.pipeline import wavefront as wf
+    cl = [(a, k) for a, k in calls if a[2] > 0]
+    require(len(cl) == KERNELS["scan"][2], f"{len(cl)} scans in one pass, "
+            f"expected {KERNELS['scan'][2]}")
+    for (stacked, starts, n, plane0), _ in cl:
+        packed = wf.pack_scan(stacked, starts, n, plane0.device)
+        got = wf.scan_packed(packed, plane0.clone(), 0, n)
+        want = wf.scan_packed_ref(packed, plane0.clone(), 0, n)
+        torch.cuda.synchronize()
+        errs["scan"] = max(errs["scan"], _max_err(
+            [got], [want], "scan main-path call"))
+    # in place on scratch planes: a scan run again over its own output
+    # reads the same samples (every reference it reads was written by an
+    # earlier step, or by no TU) and does the same work
+    work = [((st, sd, n, p0.clone()), {}) for (st, sd, n, p0), _ in cl]
+    packs = [((wf.pack_scan(st, sd, n, pl.device), pl, 0, n), {})
+             for (st, sd, n, pl), _ in work]
+
+    def plain(st, sd, n, pl):
+        wf.scan_packed_ref(wf.pack_scan(st, sd, n, pl.device), pl, 0, n)
+
+    p1 = _time_calls(plain, work, reps=1, warm=0)
+    k1 = _time_calls(wf.scan_plane, work)
+    k2 = _time_calls(wf.scan_plane, work)
+    p2 = _time_calls(plain, work, reps=1, warm=0)
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    dev_ms = _device_ms(wf.scan_packed, packs, "scan_kernel")
+    floor_ms = _device_ms(lambda *a: wf.scan_packed(*a, barrier_only=True),
+                          packs, "scan_kernel")
+    nbytes = ops = 0
+    for (st, sd, n, _), _ in cl:
+        b, o = _work_scan(st, sd, n)
+        nbytes, ops = nbytes + b, ops + o
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT32 * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    steps = [n for (_, _, n, _), _ in cl]
+    live = [int(pk.step_tus.astype(bool).sum()) for (pk, *_), _ in packs]
+    log(f"scan: {len(cl)} scans per s1080_ldp4 pass, steps {steps} (with "
+        f"TUs {live}); kernel {k1:.4f}/{k2:.4f} ms (device time {dev_ms} "
+        f"ms, barrier floor {floor_ms} ms), plain {p1:.4f}/{p2:.4f} ms; "
+        f"{nbytes} bytes ({t_bytes:.4f} ms), {ops} int32 multiply-adds "
+        f"({t_ops:.4f} ms); bound {bound_ms:.4f} ms by {bound_by}, kernel "
+        f"at {ms / bound_ms:.1f}x its bound; device time a step with TUs "
+        f"{(dev_ms or 0) / sum(live) * 1e3:.3f} us, floor "
+        f"{(floor_ms or 0) / sum(live) * 1e3:.3f} us")
+    src, rep, _ = KERNELS["scan"]
+    return dict(name="scan", route="cuda", source=src, replaces=rep,
+                launches=launches["scan"], launches_per_pass=len(cl),
+                sharded_launches={ax: [r["scan"] for r in rs]
+                                  for ax, rs in sharded.items()},
+                frame_dag_launches={str(k): v["launches"]["scan"]
+                                    for k, v in dag.items()},
+                max_abs_err=errs["scan"], ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_us=bound_ms * 1e3,
+                bound_by=bound_by, floor_ms=floor_ms, steps=steps,
+                library_ms=None)
+
+
 def phase_timing(launches: dict, sharded: dict, dag: dict,
                  errs: dict) -> list:
     import torch
@@ -776,6 +1003,7 @@ def phase_timing(launches: dict, sharded: dict, dag: dict,
                          plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_us=bound_ms * 1e3,
                          bound_by=bound_by, library_ms=None))
+    rows.append(_scan_row(calls["scan"], launches, sharded, dag, errs))
     torch.cuda.synchronize()
     return rows
 
@@ -784,16 +1012,16 @@ def main() -> int:
     import torch
     kind = phase_device()
     phase_build()
-    errs = {"itransform": 0, "mc": 0}
+    errs = {k: 0 for k in KERNELS}
     phase_compare(errs)
     phase_small_streams()
     phase_frame_dag(SMALL[1][1], warm=0)
     phase_unfused()
     phase_options()
     phase_cli()
-    launches, gold_planes = phase_1080()
+    launches, gold_planes, steps = phase_1080()
     dag = phase_frame_dag(RA_STREAM, warm=3)
-    sharded = phase_sharded(gold_planes)
+    sharded = phase_sharded(gold_planes, steps)
     rows = phase_timing(launches, sharded, dag, errs)
     require("jax" not in sys.modules, "jax was imported")
     ref = sorted(m for m in sys.modules

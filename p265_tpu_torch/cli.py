@@ -1,7 +1,7 @@
 """Command line of the PyTorch/CUDA port: decode / encode / info.
 
     python -m p265_tpu_torch.cli decode -i in.265 -o out.yuv --md5 \
-        --device cuda [--pipelined] [--resilient] [--metrics m.jsonl]
+        [--device cuda] [--pipelined] [--resilient] [--metrics m.jsonl]
     python -m p265_tpu_torch.cli decode -i in.265 --backend golden --md5
     python -m p265_tpu_torch.cli encode -i in.yuv --size 416x240 -o out.265 \
         --qp 32 --gop RA --frames 9
@@ -9,9 +9,10 @@
 
 Counterpart of p265_tpu/cli.py, with its subcommands and flags.  `decode`
 takes `--backend torch` (default; TorchDecoder, or PipelinedTorchDecoder
-with `--pipelined`) or `golden`.  The torch backend's device is explicit:
-`--device` is required for it, and a machine without a CUDA card must ask
-for `--device cpu`.  `encode` is the port's copy of the test encoder.
+with `--pipelined`) or `golden`.  The torch backend reconstructs on
+`--device`, `cuda` by default; a machine without a CUDA card must ask for
+`--device cpu` (the default fails there in torch, with no fallback).
+`encode` is the port's copy of the test encoder.
 """
 from __future__ import annotations
 
@@ -24,9 +25,6 @@ def _cmd_decode(args) -> int:
 
     from p265_tpu_torch import yuv
     if args.backend == "torch":
-        if args.device is None:
-            raise SystemExit("decode: --backend torch needs --device "
-                             "(cuda, cuda:N or cpu)")
         if args.pipelined:
             from p265_tpu_torch.pipeline.async_decoder import \
                 PipelinedTorchDecoder as Dec
@@ -129,7 +127,7 @@ def _cmd_info(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="p265_tpu_torch",
         description="HEVC decoder, PyTorch/CUDA reconstruction")
@@ -139,9 +137,9 @@ def main(argv=None) -> int:
     d.add_argument("-i", "--input", required=True)
     d.add_argument("-o", "--output")
     d.add_argument("--backend", choices=("golden", "torch"), default="torch")
-    d.add_argument("--device",
-                   help="torch device of the reconstruction: cuda, cuda:N "
-                        "or cpu (required for --backend torch)")
+    d.add_argument("--device", default="cuda",
+                   help="torch device of the reconstruction: cuda "
+                        "(default), cuda:N or cpu")
     d.add_argument("--md5", action="store_true")
     d.add_argument("--metrics", help="append JSONL run metrics to this file")
     d.add_argument("--resilient", action="store_true",
@@ -170,8 +168,11 @@ def main(argv=None) -> int:
     i = sub.add_parser("info", help="inspect an Annex-B stream")
     i.add_argument("-i", "--input", required=True)
     i.set_defaults(fn=_cmd_info)
+    return ap
 
-    args = ap.parse_args(argv)
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -42,9 +42,13 @@ _SIGNATURES = {
     "p265_itransform_grouped": [_P, _I, _P, _P, _P],
     # host group table, n_groups, host luma / chroma filters, out, stream
     "p265_mc_grouped": [_P, _I, _P, _P, _P, _P],
+    # host bucket table, n_buckets, device starts, stride, k0, k1, plane,
+    # pw, max TUs a step, barrier_only, device barrier words, host angle
+    # table, stream
+    "p265_scan": [_P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P],
 }
 
-LAUNCHES = {"itransform": 0, "mc": 0}
+LAUNCHES = {"itransform": 0, "mc": 0, "scan": 0}
 
 _lock = threading.Lock()
 _lib = None

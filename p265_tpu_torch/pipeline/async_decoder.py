@@ -44,7 +44,7 @@ from p265_tpu_torch.pipeline.decoder import TorchDecoder, fetch_planes
 
 class PipelinedTorchDecoder(TorchDecoder):
 
-    def __init__(self, device, **kw):
+    def __init__(self, device="cuda", **kw):
         super().__init__(device, **kw)
         self._q: queue.Queue = queue.Queue(maxsize=4)
         self._worker = None

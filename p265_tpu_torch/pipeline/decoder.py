@@ -73,8 +73,10 @@ def plan_frame_groups(tasks, max_f: int = 4) -> list:
 
 
 class TorchDecoder(DecoderBase):
-    """Annex-B stream -> YUV frames, reconstructed on `device` ("cuda",
-    "cuda:1", "cpu", ...).  Bit-exact vs GoldenDecoder.
+    """Annex-B stream -> YUV frames, reconstructed on `device` ("cuda" by
+    default; "cuda:1", "cpu", ...).  Bit-exact vs GoldenDecoder.  On a
+    machine without a CUDA card the default device fails in torch at the
+    first decode, with no fallback: ask for "cpu" there.
 
     The options have TpuDecoder's meaning.  fused (default): one
     batch_decode pass per picture does reconstruction and filters.
@@ -99,7 +101,7 @@ class TorchDecoder(DecoderBase):
     DecoderBase's; save_state first finishes every picture in flight.
     """
 
-    def __init__(self, device, apply_filters: bool = True,
+    def __init__(self, device="cuda", apply_filters: bool = True,
                  filters_on_device: bool = True,
                  use_native_parse: bool = True, fused: bool = True,
                  frame_dag_max: int = 1, error_resilient: bool = False):

@@ -12,6 +12,12 @@ and `reconstruct_scan_frames` (counterparts of reconstruct_tpu_scan*) and
 the batch and row-sharded paths all go through `run_scan`: the hoisted
 inter TUs, the scan's residuals and the wavefront over one merged plane.
 
+The wavefront itself, the counterpart of the JAX `_scan_plane` (one
+`lax.scan` inside the per-picture device program), is `scan_plane`: it
+packs the scan once (`pack_scan`) and, on a CUDA plane, walks every step in
+ONE launch of csrc/scan.cu (`scan_packed`); on a CPU plane it runs the
+plain version, `scan_packed_ref`, over the same packed record.
+
 Shapes are exact.  The JAX package padded them to a power-of-two ladder so
 XLA would not recompile; eager torch has no compile to protect, so each
 step works on exactly its own TUs (a slice of the step-ordered arrays) and
@@ -26,8 +32,8 @@ import numpy as np
 import torch
 
 from p265_tpu_torch.plan.frame_plan import PlanePlan, TensorPlan, TuBatch
-from p265_tpu_torch.kernels import intra, upload
-from p265_tpu_torch.kernels import itransform
+from p265_tpu_torch.kernels import _build, intra, itransform, upload
+from p265_tpu_torch.tables import INTRA_ANGLE, INV_ANGLE
 
 GUARD = 32
 
@@ -137,25 +143,156 @@ def stack_plane(pp: PlanePlan) -> dict:
 
 def expand(tu: dict, pw: int) -> dict:
     """Device: residuals (dequant + inverse transform) of every scan TU,
-    and flat gather/scatter indices into the tall plane [*, pw].
+    and the flat gather indices of their references in the tall plane
+    [*, pw].
 
     tu: {log2: fields} as stack_plane gives them, as device tensors.
-    Returns {log2: dict(ref_idx, ref_ok, mode, filter_flag, strong_allowed,
-    dc_edge, out_idx [n, s*s], residual [n, s, s])}."""
-    out = {}
+    Returns {log2: dict(ref_idx [n, 2(2s+1)] int64, ref_ok, mode,
+    filter_flag, strong_allowed, dc_edge, pos [n, 2] int64, residual
+    [n, s, s] int32)}."""
     res = itransform.batch_residual_grouped(tu)   # all sizes, one launch
-    for log2, d in tu.items():
-        s = 1 << log2
-        dev = d["pos"].device
-        ar = torch.arange(s, device=dev)
-        oi = ((d["pos"][:, 0, None, None] + ar[None, :, None]) * pw
-              + d["pos"][:, 1, None, None] + ar[None, None, :])
-        out[log2] = dict(
-            ref_idx=d["ref_ys"] * pw + d["ref_xs"], ref_ok=d["ref_ok"],
-            mode=d["mode"], filter_flag=d["filter_flag"],
-            strong_allowed=d["strong_allowed"], dc_edge=d["dc_edge"],
-            out_idx=oi.reshape(-1, s * s), residual=res[log2])
-    return out
+    return {log2: dict(
+        ref_idx=d["ref_ys"] * pw + d["ref_xs"], ref_ok=d["ref_ok"],
+        mode=d["mode"], filter_flag=d["filter_flag"],
+        strong_allowed=d["strong_allowed"], dc_edge=d["dc_edge"],
+        pos=d["pos"], residual=res[log2]) for log2, d in tu.items()}
+
+
+# the kernel's per-bucket fields, in the column order of its table, with
+# their dtypes and their shapes per TU (s: the TU's size)
+_PACK_FIELDS = (
+    ("ref_idx", torch.int64, lambda s: (4 * s + 2,)),
+    ("ref_ok", torch.bool, lambda s: (4 * s + 2,)),
+    ("mode", torch.int32, lambda s: ()),
+    ("filter_flag", torch.bool, lambda s: ()),
+    ("strong_allowed", torch.bool, lambda s: ()),
+    ("dc_edge", torch.bool, lambda s: ()),
+    ("pos", torch.int64, lambda s: (2,)),
+    ("residual", torch.int32, lambda s: (s, s)),
+)
+# intraPredAngle, then invAngle, per mode 0..34 (the kernel's angle table)
+_ANGLES = np.zeros(70, np.int32)
+_ANGLES[2:35] = INTRA_ANGLE
+_ANGLES[35 + 11:35 + 26] = INV_ANGLE
+
+
+@dataclasses.dataclass
+class ScanPack:
+    """The argument record of one scan, built once by pack_scan.
+
+    buckets: {log2: expand()'s fields}, ascending log2; starts: int32
+    [n_buckets, n_steps + 1] on the plane's device, the TUs of step k of
+    bucket i being rows starts[i][k]:starts[i][k+1]; step_tus: host [n_steps]
+    TUs a step over all buckets; table: host int64 [n_buckets, 9], the
+    kernel's per-bucket pointers and log2 (CUDA only, else None)."""
+    buckets: dict
+    starts: torch.Tensor
+    step_tus: np.ndarray
+    n_steps: int
+    table: np.ndarray | None
+
+
+def pack_scan(stacked: dict, starts: dict, n_steps: int, device) -> ScanPack:
+    """expand()'s output and the host step starts {log2: int64
+    [n_steps+1]} -> the scan's ScanPack, its step starts uploaded to
+    `device`.  On a CUDA device every field must have the dtype, shape and
+    device the kernel reads; a mismatch raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    buckets = dict(sorted(stacked.items()))
+    st = (np.stack([starts[log2] for log2 in buckets]).astype(np.int32)
+          if buckets else np.zeros((0, n_steps + 1), np.int32))
+    step_tus = (st[:, 1:] - st[:, :-1]).sum(0)
+    table = None
+    if device.type == "cuda":
+        table = np.zeros((len(buckets), 9), np.int64)
+        for row, (log2, d) in enumerate(buckets.items()):
+            s, n = 1 << log2, d["mode"].shape[0]
+            if log2 not in (2, 3, 4, 5) or int(st[row, -1]) > n:
+                raise ValueError(f"pack_scan: bucket log2={log2} with {n} "
+                                 f"TUs, starts to {int(st[row, -1])}")
+            ptrs = []
+            for name, dt, per in _PACK_FIELDS:
+                t = d[name]
+                if (t.dtype != dt or tuple(t.shape) != (n, *per(s))
+                        or t.device != device or not t.is_contiguous()):
+                    raise ValueError(
+                        f"pack_scan: {name} must be contiguous {dt} "
+                        f"{(n, *per(s))} on {device}, got {t.dtype} "
+                        f"{tuple(t.shape)} on {t.device}")
+                ptrs.append(t.data_ptr())
+            table[row] = (*ptrs, log2)
+    return ScanPack(buckets, torch.from_numpy(st).to(device), step_tus,
+                    n_steps, table)
+
+
+def scan_packed_ref(packed: ScanPack, plane, k0: int, k1: int):
+    """Plain version of the scan kernel: steps k0..k1-1 of `packed` over
+    `plane` [rows, pw] int32, in place.
+
+    Every bucket of a step predicts from the SAME pre-step plane and all
+    buckets land in ONE merged scatter (TUs of a step never overlap).
+    Chroma TUs ride in the same buckets: their per-TU flags switch the
+    luma-only smoothing and edge filters off (c_idx 0 semantics).  An
+    unavailable reference is 128 and its index is never read."""
+    flat = plane.view(-1)
+    pw = plane.shape[1]
+    starts = packed.starts.tolist()
+    for k in range(k0, k1):
+        idx, val = [], []
+        for (log2, d), st in zip(packed.buckets.items(), starts):
+            a, b = st[k], st[k + 1]
+            if a == b:
+                continue
+            s = 1 << log2
+            ok = d["ref_ok"][a:b]
+            refs = torch.where(ok, flat[torch.where(ok, d["ref_idx"][a:b],
+                                                    0)], 128)
+            pred = intra.predict_from_refs(
+                refs, d["mode"][a:b], d["filter_flag"][a:b],
+                d["strong_allowed"][a:b], s, 0, d["dc_edge"][a:b])
+            pos = d["pos"][a:b]
+            ar = torch.arange(s, device=plane.device)
+            idx.append(((pos[:, 0, None, None] + ar[None, :, None]) * pw
+                        + pos[:, 1, None, None]
+                        + ar[None, None, :]).reshape(-1))
+            val.append((pred + d["residual"][a:b]).clamp(0, 255).reshape(-1))
+        if idx:
+            flat[torch.cat(idx)] = torch.cat(val)
+    return plane
+
+
+def scan_packed(packed: ScanPack, plane, k0: int, k1: int,
+                barrier_only: bool = False):
+    """The scan kernel (csrc/scan.cu): steps k0..k1-1 of `packed` over the
+    CUDA plane [rows, pw] int32, in place, in ONE cooperative launch on
+    the current stream.  barrier_only walks the same steps and barriers
+    and computes no TU (the floor of the step chain, for measurement)."""
+    if (plane.dtype != torch.int32 or plane.dim() != 2
+            or not plane.is_contiguous()
+            or plane.device != packed.starts.device
+            or packed.table is None):
+        raise ValueError(f"scan: plane must be contiguous int32 [rows, pw] "
+                         f"on {packed.starts.device}, got {plane.dtype} "
+                         f"{tuple(plane.shape)} on {plane.device}")
+    if not 0 <= k0 < k1 <= packed.n_steps:
+        raise ValueError(f"scan: steps [{k0}, {k1}) outside "
+                         f"[0, {packed.n_steps})")
+    dev = plane.device
+    lib = _build.library()
+    bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.p265_scan(
+            packed.table.ctypes.data, len(packed.buckets),
+            packed.starts.data_ptr(), packed.n_steps + 1, k0, k1,
+            plane.data_ptr(), plane.shape[1],
+            int(packed.step_tus[k0:k1].max()), int(barrier_only),
+            bar.data_ptr(), _ANGLES.ctypes.data,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "scan")
+    _build.LAUNCHES["scan"] += 1
+    return plane
 
 
 def scan_plane(stacked: dict, starts: dict, n_steps: int, plane,
@@ -163,28 +300,21 @@ def scan_plane(stacked: dict, starts: dict, n_steps: int, plane,
     """Device: run the wavefront over `plane` [rows, pw] int32 in place.
 
     stacked: expand() output; starts: {log2: host int64 [n_steps+1]}.
-    Every bucket of a step predicts from the SAME pre-step plane and all
-    buckets land in ONE merged scatter (TUs of a step never overlap).
-    Chroma TUs ride in the same buckets: their per-TU flags switch the
-    luma-only smoothing and edge filters off (c_idx 0 semantics).
-    after_step(plane), where given, runs after every step, empty or not
-    (the row-sharded scan refreshes its halo rows there)."""
-    flat = plane.view(-1)
-    for k in range(n_steps):
-        idx, val = [], []
-        for log2, d in stacked.items():
-            a, b = int(starts[log2][k]), int(starts[log2][k + 1])
-            if a == b:
-                continue
-            s = 1 << log2
-            refs = torch.where(d["ref_ok"][a:b], flat[d["ref_idx"][a:b]], 128)
-            pred = intra.predict_from_refs(
-                refs, d["mode"][a:b], d["filter_flag"][a:b],
-                d["strong_allowed"][a:b], s, 0, d["dc_edge"][a:b])
-            idx.append(d["out_idx"][a:b].reshape(-1))
-            val.append((pred + d["residual"][a:b]).clamp(0, 255).reshape(-1))
-        if idx:
-            flat[torch.cat(idx)] = torch.cat(val)
+    Packs the scan once (pack_scan), then runs it: on a CPU plane by the
+    plain version, on a CUDA plane by the kernel (any other device
+    raises).  Without after_step, one run over all the steps; with it,
+    one run per step, each followed by after_step(plane), empty step or
+    not (the row-sharded scan refreshes its halo rows there).  A scan
+    with no size bucket runs nothing."""
+    if plane.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"scan_plane: no scan for a plane on {plane.device}")
+    run = scan_packed_ref if plane.device.type == "cpu" else scan_packed
+    packed = pack_scan(stacked, starts, n_steps, plane.device)
+    ranges = ([(0, n_steps)] if after_step is None
+              else [(k, k + 1) for k in range(n_steps)])
+    for k0, k1 in ranges:
+        if packed.buckets and k1 > k0:
+            run(packed, plane, k0, k1)
         if after_step is not None:
             after_step(plane)
     return plane

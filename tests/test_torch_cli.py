@@ -5,16 +5,20 @@ one tiles+WPP setting, and the all-intra branch); `decode --backend golden`
 and `--backend torch --device cpu` (plain and pipelined) print the MD5 that
 `p265_tpu.cli decode` prints; `info` prints the same lines; `--metrics`
 writes the JSONL record with the reference's keys; `--resilient` decodes a
-stream with a truncated slice; the torch backend refuses to guess a device.
+stream with a truncated slice; without `--device` the torch backend
+reconstructs on cuda, as both torch decoders do by default.
 """
 import json
 import os
 
 import pytest
+import torch
 from test_torch_aux import _truncate_slice, _two_gop_stream
 
 from p265_tpu.cli import main as jax_main
-from p265_tpu_torch.cli import main
+from p265_tpu_torch.cli import build_parser, main
+from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
+from p265_tpu_torch.pipeline.decoder import TorchDecoder
 
 ENCODE = {
     "LDP": ["--size", "64x64", "--qp", "34", "--gop", "LDP", "--frames", "3"],
@@ -113,5 +117,24 @@ def test_decode_resilient(tmp_path, capsys):
 
 
 def test_torch_backend_needs_a_device(ldp):
-    with pytest.raises(SystemExit):
-        main(["decode", "-i", str(ldp)])
+    """Without --device the torch backend takes cuda; a machine without a
+    card then fails in torch, and nothing falls back to the CPU."""
+    args = build_parser().parse_args(["decode", "-i", str(ldp)])
+    assert torch.device(args.device) == torch.device("cuda")
+    if not torch.cuda.is_available():
+        for extra in ([], ["--pipelined"]):
+            with pytest.raises((AssertionError, RuntimeError),
+                               match="CUDA"):
+                main(["decode", "-i", str(ldp)] + extra)
+
+
+def test_default_device_is_cuda():
+    """The CLI's --device and both decoders' device default to cuda; no
+    decode is made."""
+    args = build_parser().parse_args(["decode", "-i", "x.265"])
+    assert torch.device(args.device) == torch.device("cuda")
+    assert build_parser().parse_args(
+        ["decode", "-i", "x.265", "--device", "cpu"]).device == "cpu"
+    for cls in (TorchDecoder, PipelinedTorchDecoder):
+        assert cls().device == torch.device("cuda")
+        assert cls("cpu").device == torch.device("cpu")

@@ -9,6 +9,8 @@ JAX, which the port does not need):
 The decision is taken inside the fixture, never at import, so that every
 test process collects the same tests.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -17,8 +19,11 @@ from p265_tpu.golden.decoder import GoldenDecoder
 from p265_tpu.hls.params import PPS, SPS
 from p265_tpu.testgen.encoder import (Encoder, IntraEncoder,
                                       make_moving_sequence, make_test_image)
-from p265_tpu_torch.kernels import _build, itransform, mc
+from p265_tpu_torch.golden.decoder import GoldenDecoder as PortGolden
+from p265_tpu_torch.kernels import _build, itransform, mc, upload
+from p265_tpu_torch.pipeline import wavefront as wf
 from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
+from p265_tpu_torch.plan.frame_plan import build_tensor_plan
 
 
 @pytest.fixture
@@ -209,3 +214,41 @@ def test_frame_dag_on_cuda_matches_golden(cuda):
             assert np.array_equal(f.planes[c], g.planes[c]), (f.poc, c)
             assert np.array_equal(f.prefilter[c].cpu().numpy(),
                                   g.prefilter[c]), (f.poc, c)
+
+
+def test_scan_kernel_matches_plain(cuda):
+    """Every plane of every picture of the committed 96x64 LDP stream in
+    one tall plane: the scan kernel, in one launch and in one launch a
+    step (after_step), against scan_packed_ref on the same packed record."""
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "p265_tpu_torch", "data",
+            "s96x64_ldp5.265"), "rb") as f:
+        gold = PortGolden().decode_stream(f.read())
+    pps = [pp for g in gold for pp in build_tensor_plan(
+        g.plan, {o.poc: o.planes for o in gold if o.poc != g.poc}).planes]
+    merged = wf.merge_segments(pps)
+    total_h, pw = merged.shape
+    shape = (total_h + wf.GUARD, pw)
+    pred = wf.attached_pred(pps, wf.segment_offsets(pps), shape, cuda)
+    itu = upload(wf.hoist_inter(merged), cuda)
+    fields, starts = wf.scan_fields(wf.stack_plane(merged))
+    plane = wf.init_plane(itu, pred, shape, cuda)
+    stacked = wf.expand(upload(fields, cuda), pw)
+    n = merged.n_steps
+    before = _build.LAUNCHES["scan"]
+    got = wf.scan_plane(stacked, starts, n, plane.clone())
+    assert _build.LAUNCHES["scan"] == before + 1
+    steps = wf.scan_plane(stacked, starts, n, plane.clone(),
+                          after_step=lambda p: None)
+    assert _build.LAUNCHES["scan"] == before + 1 + n
+    want = wf.scan_packed_ref(wf.pack_scan(stacked, starts, n, cuda),
+                              plane.clone(), 0, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(steps, want)
+    for o, pp, c in zip(wf.segment_offsets(pps), pps,
+                        [c for _ in gold for c in range(3)]):
+        g = gold[pps.index(pp) // 3]
+        assert np.array_equal(
+            got[o:o + pp.shape[0], :pp.shape[1]].cpu().numpy(),
+            g.prefilter[c])
