@@ -14,7 +14,8 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    outside the picture), each sweep packed as one multi-group launch; the
    scan kernel against scan_packed_ref on random scans (every mode and
    size, every flag, unavailable references outside the plane, empty
-   steps, flat and non-flat 32x32 edges), and a split run against one.
+   steps, flat and non-flat 32x32 edges; steps wider than the kernel's
+   warps; one TU a step), and a split run against one.
 4. small streams: the committed 96x64 LDP, RA (bi-pred) and PCM LDP
    streams (PCM CUs in the I picture and in every P picture, whose MC runs
    through K2), PipelinedTorchDecoder on cuda vs the port's GoldenDecoder,
@@ -59,7 +60,9 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    main-path scan equal to its plain version, the window of scan_plane in
    turns with the plain version (one run per turn), the device time, the
    bound by bytes, and the barrier floor (`floor_ms`: the same launches
-   computing no TU).
+   computing no TU); the TUs a step (max, median), the launch shape (one
+   cluster: CTAs, warps), and per step with TUs the floor and the chain
+   (device - floor).
 
 Every path from phase 4 on is driven with the kernels' launch counts set
 to 0 just before it and read just after; all must be above 0 (launches
@@ -199,81 +202,11 @@ def _max_err(got, want, name: str) -> int:
     return err
 
 
-def _scan_case(rng, dev, n_steps: int = 48, per_size: int = 140):
-    """A random scan over a random 1024x1024 int32 plane -> (stacked,
-    starts, n_steps, plane): per size 4..32, `per_size` TUs over the steps
-    (a fifth of the steps left empty), each mode 0..34 at least 4 times,
-    random filter_flag / strong_allowed / dc_edge, residuals to +-300.
-    Every TU writes a 32x32 tile of its own (rows 32 on), so no two TUs
-    of a step overlap; its references are anywhere but in the tiles its
-    own step writes, all available, none, or a random mix, and a third of
-    the unavailable ones point outside the plane.  Row 0 is a ramp that
-    no TU writes: every third 32x32 TU reads it on both edges, so the
-    strong-smoothing flatness test passes there (and fails elsewhere)."""
-    import torch
-    rows = cols = 1024
-    tile = 32
-    tiles_x = cols // tile
-    plane = rng.integers(0, 256, (rows, cols)).astype(np.int32)
-    plane[0] = 50 + np.arange(cols) // 8
-    empty = set(rng.choice(n_steps, n_steps // 5, replace=False).tolist())
-    live = np.array([k for k in range(n_steps) if k not in empty])
-    steps = {log2: np.sort(rng.choice(live, per_size))
-             for log2 in (2, 3, 4, 5)}
-    order = rng.permutation((rows // tile - 1) * tiles_x)
-    own, t = {}, 0       # the tile of every TU; the tiles of every step
-    by_step = {k: set() for k in range(n_steps)}
-    for log2, st in steps.items():
-        own[log2] = order[t:t + len(st)]
-        t += len(st)
-        for k, tl in zip(st, own[log2]):
-            by_step[int(k)].add(int(tl))
-    stacked, starts = {}, {}
-    for log2, st in steps.items():
-        s, n = 1 << log2, len(st)
-        nr = 4 * s + 2
-        ty, tx = own[log2] // tiles_x + 1, own[log2] % tiles_x
-        pos = np.stack([ty * tile + rng.integers(0, tile // s, n) * s,
-                        tx * tile + rng.integers(0, tile // s, n) * s], 1)
-        idx = rng.integers(0, rows * cols, (n, nr))
-        for u in range(n):
-            mine = by_step[int(st[u])]
-            while True:     # no reference inside a tile of the TU's step
-                y, x = idx[u] // cols, idx[u] % cols
-                tl = (y // tile - 1) * tiles_x + x // tile
-                bad = (y >= tile) & np.isin(tl, list(mine))
-                if not bad.any():
-                    break
-                idx[u, bad] = rng.integers(0, rows * cols, int(bad.sum()))
-        r = rng.random(n)
-        ok = np.where((r < 0.4)[:, None], True, np.where(
-            (r < 0.5)[:, None], False, rng.random((n, nr)) < 0.7))
-        far = ~ok & (rng.random((n, nr)) < 0.33)
-        idx[far] = rng.choice([-7, -3 * cols, rows * cols + 11, 10 ** 12],
-                              int(far.sum()))
-        mode = rng.permutation(np.arange(n) % 35).astype(np.int32)
-        ff, sa, de = (rng.random(n) < 0.5 for _ in range(3))
-        if log2 == 5:
-            flat = np.arange(n) % 3 == 0
-            x0 = rng.integers(0, cols - nr // 2, (n, 2))
-            ramp = np.concatenate([x0[:, :1] + np.arange(nr // 2),
-                                   x0[:, 1:] + np.arange(nr // 2)], 1)
-            idx[flat], ok[flat], ff[flat] = ramp[flat], True, True
-        stacked[log2] = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                         for k, v in dict(
-            ref_idx=idx.astype(np.int64), ref_ok=ok, mode=mode,
-            filter_flag=ff, strong_allowed=sa, dc_edge=de,
-            pos=pos.astype(np.int64),
-            residual=rng.integers(-300, 300, (n, s, s)).astype(np.int32),
-        ).items()}
-        starts[log2] = np.searchsorted(st, np.arange(n_steps + 1))
-    return stacked, starts, n_steps, torch.from_numpy(plane).to(dev)
-
-
 def phase_compare(errs: dict) -> None:
     import torch
     from p265_tpu_torch.kernels import itransform, mc
     from p265_tpu_torch.pipeline import wavefront as wf
+    from p265_tpu_torch.testgen.scan_cases import random_scan
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
     for scale in (False, True):
@@ -298,9 +231,20 @@ def phase_compare(errs: dict) -> None:
         errs["mc"] = max(errs["mc"], _max_err(got, want, f"mc far={far}"))
     log("mc == plain: 6 geometries x 2 lists in one launch, n=4096 each, "
         "MVs up to 8 px and up to 300 px beyond the picture")
-    for case in range(3):
-        stacked, starts, n, plane = _scan_case(rng, dev)
+    ctas, warps = wf.SCAN_SHAPE
+    cases = [{}, {}, {}, dict(n_steps=4, per_size=560),
+             dict(n_steps=64, one_a_step=True)]
+    for case, kw in enumerate(cases):
+        stacked, starts, n, plane = random_scan(rng, dev, **kw)
         packed = wf.pack_scan(stacked, starts, n, dev)
+        widths = packed.step_tus[packed.step_tus > 0]
+        if kw.get("per_size", 0) > 140:
+            require(int(widths.min()) > ctas * warps,
+                    f"scan sweep {case}: a step of {int(widths.min())} TUs "
+                    f"is not wider than {ctas * warps} warps")
+        if kw.get("one_a_step"):
+            require(set(widths.tolist()) == {1} and len(widths) == n,
+                    f"scan sweep {case}: not one TU a step")
         want = wf.scan_packed_ref(packed, plane.clone(), 0, n)
         got = wf.scan_packed(packed, plane.clone(), 0, n)
         k = int(rng.integers(1, n))
@@ -316,8 +260,10 @@ def phase_compare(errs: dict) -> None:
     log("scan == plain: 3 random scans of 48 steps (a fifth empty), 140 "
         "TUs a size 4..32, every mode, random smoothing / strong / edge "
         "flags and ref_ok patterns (unavailable references outside the "
-        "plane too), flat and non-flat 32x32 edges; a split run [0, k) + "
-        "[k, n) equal to one run")
+        "plane too), flat and non-flat 32x32 edges; one of 4 steps of ~560 "
+        f"TUs (wider than the kernel's {ctas} x {warps} warps); one of 64 "
+        "steps of one TU each; a split run [0, k) + [k, n) equal to one "
+        "run in each")
 
 
 def _stream_bytes(fn: str) -> bytes:
@@ -927,14 +873,21 @@ def _scan_row(calls: list, launches: dict, sharded: dict, dag: dict,
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     steps = [n for (_, _, n, _), _ in cl]
     live = [int(pk.step_tus.astype(bool).sum()) for (pk, *_), _ in packs]
+    tus = np.concatenate([pk.step_tus for (pk, *_), _ in packs])
+    tus_max, tus_med = int(tus.max()), float(np.median(tus[tus > 0]))
+    ctas, warps = wf.SCAN_SHAPE
+    floor_us = (floor_ms or 0) / sum(live) * 1e3
+    chain_us = ((dev_ms or 0) - (floor_ms or 0)) / sum(live) * 1e3
     log(f"scan: {len(cl)} scans per s1080_ldp4 pass, steps {steps} (with "
-        f"TUs {live}); kernel {k1:.4f}/{k2:.4f} ms (device time {dev_ms} "
-        f"ms, barrier floor {floor_ms} ms), plain {p1:.4f}/{p2:.4f} ms; "
+        f"TUs {live}), TUs a step max {tus_max}, median {tus_med}; launch "
+        f"one cluster of {ctas} CTAs x {warps} warps; kernel "
+        f"{k1:.4f}/{k2:.4f} ms (device time {dev_ms} ms, barrier floor "
+        f"{floor_ms} ms), plain {p1:.4f}/{p2:.4f} ms; "
         f"{nbytes} bytes ({t_bytes:.4f} ms), {ops} int32 multiply-adds "
         f"({t_ops:.4f} ms); bound {bound_ms:.4f} ms by {bound_by}, kernel "
-        f"at {ms / bound_ms:.1f}x its bound; device time a step with TUs "
-        f"{(dev_ms or 0) / sum(live) * 1e3:.3f} us, floor "
-        f"{(floor_ms or 0) / sum(live) * 1e3:.3f} us")
+        f"at {ms / bound_ms:.1f}x its bound; a step with TUs: device "
+        f"{(dev_ms or 0) / sum(live) * 1e3:.3f} us, floor {floor_us:.3f} "
+        f"us, chain (device - floor) {chain_us:.3f} us")
     src, rep, _ = KERNELS["scan"]
     return dict(name="scan", route="cuda", source=src, replaces=rep,
                 launches=launches["scan"], launches_per_pass=len(cl),
@@ -945,6 +898,7 @@ def _scan_row(calls: list, launches: dict, sharded: dict, dag: dict,
                 max_abs_err=errs["scan"], ms=ms, device_ms=dev_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_us=bound_ms * 1e3,
                 bound_by=bound_by, floor_ms=floor_ms, steps=steps,
+                floor_us_a_step=floor_us, chain_us_a_step=chain_us,
                 library_ms=None)
 
 

@@ -4,7 +4,9 @@ nvcc compiles every source at once, one process per source, and links the
 objects into one shared library with a plain C interface, loaded with
 ctypes.  The library is named by a hash of the sources and flags and lives
 in `p265_tpu_torch/build/`, so a changed source rebuilds and an unchanged
-one loads at once.  The build runs at the first
+one loads at once.  `library(defines)` builds and loads a second library
+with other compile-time constants (profile_scan.py's launch shapes of the
+scan kernel); every path of the decoder uses `library()`.  The build runs at the first
 kernel launch of a process, never at import: the CPU tests import every
 module on machines with no nvcc.  A missing nvcc or a failed build raises;
 nothing falls back.
@@ -43,16 +45,15 @@ _SIGNATURES = {
     # host group table, n_groups, host luma / chroma filters, out, stream
     "p265_mc_grouped": [_P, _I, _P, _P, _P, _P],
     # host bucket table, n_buckets, device starts, stride, k0, k1, plane,
-    # pw, max TUs a step, barrier_only, device barrier words, host angle
-    # table, stream
-    "p265_scan": [_P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P],
+    # pw, barrier_only, host angle table, stream
+    "p265_scan": [_P, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P],
 }
 
 LAUNCHES = {"itransform": 0, "mc": 0, "scan": 0}
 
 _lock = threading.Lock()
-_lib = None
-build_info: dict = {}    # {"path", "seconds", "log"} of this process's load
+_libs: dict = {}         # defines -> the loaded library
+build_info: dict = {}    # {"path", "seconds", "log"} of library()'s load
 
 
 def reset_launch_counts() -> None:
@@ -75,9 +76,10 @@ def _nvcc() -> str:
                        "the CUDA kernels of p265_tpu_torch cannot be built")
 
 
-def _build() -> tuple[str, str]:
+def _build(defines: tuple[str, ...]) -> tuple[str, str]:
     srcs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    h = hashlib.sha256(" ".join(flags).encode())
     for p in srcs:
         h.update(os.path.basename(p).encode())
         with open(p, "rb") as f:
@@ -89,7 +91,7 @@ def _build() -> tuple[str, str]:
     tmp = f"{so}.{os.getpid()}.tmp"
     nvcc, logs = _nvcc(), []
     objs = [f"{tmp}.{os.path.basename(p)}.o" for p in srcs]
-    jobs = [[nvcc, *NVCC_FLAGS, "-c", p, "-o", o] for p, o in zip(srcs, objs)]
+    jobs = [[nvcc, *flags, "-c", p, "-o", o] for p, o in zip(srcs, objs)]
     jobs.append([nvcc, "-shared", "-o", tmp, *objs])   # the link, last
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True))
@@ -116,13 +118,14 @@ def _build() -> tuple[str, str]:
     return so, "".join(logs) + r.stdout + r.stderr
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use (thread-safe)."""
-    global _lib
+def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded kernel library, built on first use (thread-safe);
+    `defines` ("NAME=VALUE", passed to nvcc as -D) build another one."""
     with _lock:
-        if _lib is None:
+        lib = _libs.get(defines)
+        if lib is None:
             t0 = time.perf_counter()
-            path, log = _build()
+            path, log = _build(defines)
             lib = ctypes.CDLL(path)
             for name, args in _SIGNATURES.items():
                 fn = getattr(lib, name)
@@ -130,10 +133,11 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.p265_error_string.argtypes = [ctypes.c_int]
             lib.p265_error_string.restype = ctypes.c_char_p
-            build_info.update(path=path, log=log,
-                              seconds=time.perf_counter() - t0)
-            _lib = lib
-    return _lib
+            if not defines:
+                build_info.update(path=path, log=log,
+                                  seconds=time.perf_counter() - t0)
+            _libs[defines] = lib
+    return lib
 
 
 def check(err: int, name: str) -> None:

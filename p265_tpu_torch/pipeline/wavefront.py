@@ -15,7 +15,9 @@ inter TUs, the scan's residuals and the wavefront over one merged plane.
 The wavefront itself, the counterpart of the JAX `_scan_plane` (one
 `lax.scan` inside the per-picture device program), is `scan_plane`: it
 packs the scan once (`pack_scan`) and, on a CUDA plane, walks every step in
-ONE launch of csrc/scan.cu (`scan_packed`); on a CPU plane it runs the
+ONE launch of csrc/scan.cu (`scan_packed`: one thread-block cluster, a
+warp per TU, the hardware cluster barrier between steps); on a CPU plane
+it runs the
 plain version, `scan_packed_ref`, over the same packed record.
 
 Shapes are exact.  The JAX package padded them to a power-of-two ladder so
@@ -170,6 +172,12 @@ _PACK_FIELDS = (
     ("pos", torch.int64, lambda s: (2,)),
     ("residual", torch.int32, lambda s: (s, s)),
 )
+# the scan kernel's launch shape, csrc/scan.cu's (kCtas, kWarps): one
+# cluster of 16 CTAs of 16 warps, 256 warps, so every TU of the widest step
+# of a 1080p I picture (66 TUs) has a warp of its own (a 16x16 TU takes
+# two, a 32x32 TU eight); chosen from the shapes that profile_scan.py times
+# on an H100 (PERF.md)
+SCAN_SHAPE = (16, 16)
 # intraPredAngle, then invAngle, per mode 0..34 (the kernel's angle table)
 _ANGLES = np.zeros(70, np.int32)
 _ANGLES[2:35] = INTRA_ANGLE
@@ -266,9 +274,20 @@ def scan_packed_ref(packed: ScanPack, plane, k0: int, k1: int):
 def scan_packed(packed: ScanPack, plane, k0: int, k1: int,
                 barrier_only: bool = False):
     """The scan kernel (csrc/scan.cu): steps k0..k1-1 of `packed` over the
-    CUDA plane [rows, pw] int32, in place, in ONE cooperative launch on
-    the current stream.  barrier_only walks the same steps and barriers
-    and computes no TU (the floor of the step chain, for measurement)."""
+    CUDA plane [rows, pw] int32, in place, in ONE launch of one thread-block
+    cluster (SCAN_SHAPE) on the current stream.  barrier_only walks the
+    same steps and barriers and computes no TU (the floor of the step
+    chain, for measurement).  A range or a launch the card refuses
+    raises."""
+    _scan_launch(packed, plane, k0, k1, barrier_only)
+    _build.LAUNCHES["scan"] += 1
+    return plane
+
+
+def _scan_launch(packed: ScanPack, plane, k0: int, k1: int,
+                 barrier_only: bool, defines: tuple = ()) -> None:
+    """scan_packed's launch, uncounted, through the kernel library built
+    with `defines` (profile_scan.py's other launch shapes)."""
     if (plane.dtype != torch.int32 or plane.dim() != 2
             or not plane.is_contiguous()
             or plane.device != packed.starts.device
@@ -280,19 +299,14 @@ def scan_packed(packed: ScanPack, plane, k0: int, k1: int,
         raise ValueError(f"scan: steps [{k0}, {k1}) outside "
                          f"[0, {packed.n_steps})")
     dev = plane.device
-    lib = _build.library()
-    bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    lib = _build.library(defines)
     with torch.cuda.device(dev):
         err = lib.p265_scan(
             packed.table.ctypes.data, len(packed.buckets),
             packed.starts.data_ptr(), packed.n_steps + 1, k0, k1,
-            plane.data_ptr(), plane.shape[1],
-            int(packed.step_tus[k0:k1].max()), int(barrier_only),
-            bar.data_ptr(), _ANGLES.ctypes.data,
-            torch.cuda.current_stream(dev).cuda_stream)
+            plane.data_ptr(), plane.shape[1], int(barrier_only),
+            _ANGLES.ctypes.data, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "scan")
-    _build.LAUNCHES["scan"] += 1
-    return plane
 
 
 def scan_plane(stacked: dict, starts: dict, n_steps: int, plane,

@@ -24,6 +24,7 @@ from p265_tpu_torch.kernels import _build, itransform, mc, upload
 from p265_tpu_torch.pipeline import wavefront as wf
 from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
 from p265_tpu_torch.plan.frame_plan import build_tensor_plan
+from p265_tpu_torch.testgen.scan_cases import random_scan
 
 
 @pytest.fixture
@@ -219,7 +220,10 @@ def test_frame_dag_on_cuda_matches_golden(cuda):
 def test_scan_kernel_matches_plain(cuda):
     """Every plane of every picture of the committed 96x64 LDP stream in
     one tall plane: the scan kernel, in one launch and in one launch a
-    step (after_step), against scan_packed_ref on the same packed record."""
+    step (after_step), against scan_packed_ref on the same packed record;
+    barrier_only leaves the plane as it was.  Then a random scan whose
+    steps are wider than the kernel's warps and read what earlier steps
+    wrote, against scan_packed_ref."""
     with open(os.path.join(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))), "p265_tpu_torch", "data",
             "s96x64_ldp5.265"), "rb") as f:
@@ -243,12 +247,26 @@ def test_scan_kernel_matches_plain(cuda):
     assert _build.LAUNCHES["scan"] == before + 1 + n
     want = wf.scan_packed_ref(wf.pack_scan(stacked, starts, n, cuda),
                               plane.clone(), 0, n)
+    idle = wf.scan_packed(wf.pack_scan(stacked, starts, n, cuda),
+                          plane.clone(), 0, n, barrier_only=True)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(steps, want)
+    assert torch.equal(idle, plane)
     for o, pp, c in zip(wf.segment_offsets(pps), pps,
                         [c for _ in gold for c in range(3)]):
         g = gold[pps.index(pp) // 3]
         assert np.array_equal(
             got[o:o + pp.shape[0], :pp.shape[1]].cpu().numpy(),
             g.prefilter[c])
+
+    st, sd, n, plane = random_scan(np.random.default_rng(6), cuda,
+                                   n_steps=4, per_size=560)
+    packed = wf.pack_scan(st, sd, n, cuda)
+    ctas, warps = wf.SCAN_SHAPE
+    assert int(packed.step_tus.min()) > ctas * warps
+    got = wf.scan_packed(packed, plane.clone(), 0, n)
+    want = wf.scan_packed_ref(packed, plane.clone(), 0, n)
+    torch.cuda.synchronize()
+    assert not torch.equal(want, plane)
+    assert torch.equal(got, want)

@@ -26,6 +26,7 @@ from p265_tpu_torch.hls.params import PPS, SPS
 from p265_tpu_torch.kernels import upload
 from p265_tpu_torch.pipeline import wavefront as wf
 from p265_tpu_torch.testgen.encoder import IntraEncoder
+from p265_tpu_torch.testgen.scan_cases import random_scan
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "p265_tpu_torch", "data")
@@ -137,3 +138,48 @@ def test_scan_refuses_other_devices():
         wf.scan_plane(stacked, starts, n, plane.to("meta"))
     with pytest.raises(ValueError, match="scan"):
         wf.scan_packed(_packed(STREAMS[0])[0], plane.clone(), 0, n)
+
+
+@pytest.mark.parametrize("kw", [dict(n_steps=4, per_size=560),
+                                dict(n_steps=16, one_a_step=True)],
+                         ids=["wide_steps", "one_tu_a_step"])
+def test_random_scan_cases(kw):
+    """The random scans that the GPU tests and chip_smoke.py hold the scan
+    kernel to: steps wider than the kernel's warps, or one TU a step; no
+    TU writes a tile that another TU of its step writes or reads, and
+    later steps read what earlier steps wrote; a split run of the plain
+    version equals one run."""
+    stacked, starts, n, plane = random_scan(np.random.default_rng(7),
+                                            "cpu", **kw)
+    packed = wf.pack_scan(stacked, starts, n, "cpu")
+    live = packed.step_tus[packed.step_tus > 0]
+    if kw.get("one_a_step"):
+        assert live.tolist() == [1] * n
+    else:
+        assert int(live.min()) > int(np.prod(wf.SCAN_SHAPE))
+    step_of, tile_of, refs = [], [], []
+    for log2, d in stacked.items():
+        step_of.append(np.repeat(np.arange(n), np.diff(starts[log2])))
+        pos = d["pos"].numpy()
+        tile_of.append((pos[:, 0] // 32 - 1) * 32 + pos[:, 1] // 32)
+        idx, ok = d["ref_idx"].numpy(), d["ref_ok"].numpy()
+        y, x = idx // 1024, idx % 1024
+        refs.append([set(((y[u] // 32 - 1) * 32 + x[u] // 32)
+                         [ok[u] & (y[u] >= 32)].tolist())
+                     for u in range(len(idx))])
+    step_of, tile_of = np.concatenate(step_of), np.concatenate(tile_of)
+    refs = sum(refs, [])
+    written, read_back = set(), 0
+    for k in range(n):
+        mine = tile_of[step_of == k]
+        assert len(set(mine.tolist())) == len(mine)
+        for u in np.flatnonzero(step_of == k):
+            assert not refs[u] & set(mine.tolist())
+            read_back += len(refs[u] & written)
+        written |= set(mine.tolist())
+    assert read_back > 0
+    one = wf.scan_packed_ref(packed, plane.clone(), 0, n)
+    assert not torch.equal(one, plane)
+    split = wf.scan_packed_ref(packed, wf.scan_packed_ref(
+        packed, plane.clone(), 0, n // 2), n // 2, n)
+    assert torch.equal(split, one)
