@@ -36,24 +36,32 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    cold pass bit-exact against GoldenDecoder on every plane, with the
    kernel launch counters reset just before it (3 MC, 7 residual and 4
    scan launches a pass); then 3 warm passes.
-10. frame DAG at full width: RA_STREAM (1920x1080 random access, QP 32,
+10. streams: every stream of p265_tpu_torch/testgen/streams.py that no
+   other phase decodes (STREAMS: 416x240 and 832x480 LDP, 1080p intra,
+   1080p with 4x2 tiles, with tiles and WPP, 3840x2160 intra, 16 frames of
+   1080p LDP), each committed under p265_tpu_torch/data; one cold and one
+   warm pass each, bit-exact against golden on every plane before and
+   after the filters, the launches of each pass equal to STREAMS'.  The
+   golden decodes of these streams run in worker processes (spawn),
+   started after phase 1, so that they overlap the card phases.
+11. frame DAG at full width: RA_STREAM (1920x1080 random access, QP 32,
    bi-prediction) with frame_dag_max 1 and 4, one cold and three warm
    passes each, in turns; every pass bit-exact against golden on every
    plane before and after the filters; dag_batched, the K1/K2 launches a
    pass, the scan steps of every dispatch (one scan launch each: 8 at 1,
    5 at 4), and fps with spread for both.
-11. sharded: one process a rank (NCCL with one rank a card where there are
+12. sharded: one process a rank (NCCL with one rank a card where there are
    two cards or more, else two ranks sharing cuda:0 over gloo).  The space
    axis decodes every picture of s1080_ldp4 row-sharded over the ranks
    (SpatialDecoder), each picture's planes before and after the filters
-   equal to phase 5's golden ones on every rank; the stream axis decodes
+   equal to phase 9's golden ones on every rank; the stream axis decodes
    the three small streams and s1080_ldp4, split over the ranks, through
    decode_segments_production, bit-exact.  Per rank: the wall time,
    collectives and bytes of each picture, and the kernels' launches
    (counters reset just before each axis), which must all be above 0; the
    space axis launches the scan once a wavefront step, the stream axis
    once a picture.
-12. per-kernel time against the plain version and the bound, over every
+13. per-kernel time against the plain version and the bound, over every
    call the main path made on one pass of s1080_ldp4: the CUDA-event
    window of the calls (`ms`, host launch gaps included) and the kernel's
    own device time from torch.profiler (`device_ms`).  The scan row: every
@@ -66,14 +74,15 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
 
 Every path from phase 4 on is driven with the kernels' launch counts set
 to 0 just before it and read just after; all must be above 0 (launches
-made to compare a kernel with its plain version are outside those windows).
+made to compare a kernel with its plain version are outside those windows),
+but for the intra streams of phase 10, which have no MC to launch.  The
+total wall time is printed before the kernels' record.
 Nothing of JAX and nothing of the JAX package p265_tpu may be imported.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 import statistics
@@ -91,6 +100,20 @@ N_FRAMES = 4
 RA_STREAM = "s1080_ra8.265"
 SMALL = (("LDP", "s96x64_ldp5.265"), ("RA", "s96x64_ra5.265"),
          ("PCM LDP", "s96x64_pcm_ldp5.265"))
+# phase 10: stream -> kernel launches a pass (itransform, mc, scan), as
+# measured on an H100: K1 and the scan on every stream, K2 on the P
+# streams only.  The card takes them in this order, the golden workers in
+# the reverse one
+STREAMS = {
+    "s416_ldp4": (7, 3, 4),
+    "s832_ldp4": (7, 3, 4),
+    "s1080": (1, 0, 1),
+    "s1080_t8": (1, 0, 1),
+    "s1080_t8w": (1, 0, 1),
+    "s4k": (1, 0, 1),
+    "s1080_ldp16": (31, 15, 16),
+}
+GOLDEN_WORKERS = 3
 KERNELS = {  # name -> (source, the TPU kernel it replaces, launches a pass)
     "itransform": ("p265_tpu_torch/csrc/itransform.cu",
                    "p265_tpu/kernels/pallas_itransform.py:39", 7),
@@ -206,7 +229,8 @@ def phase_compare(errs: dict) -> None:
     import torch
     from p265_tpu_torch.kernels import itransform, mc
     from p265_tpu_torch.pipeline import wavefront as wf
-    from p265_tpu_torch.testgen.scan_cases import random_scan
+    from p265_tpu_torch.testgen.scan_cases import (random_scan, wide_scan,
+                                                   work_items)
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
     for scale in (False, True):
@@ -233,9 +257,16 @@ def phase_compare(errs: dict) -> None:
         "MVs up to 8 px and up to 300 px beyond the picture")
     ctas, warps = wf.SCAN_SHAPE
     cases = [{}, {}, {}, dict(n_steps=4, per_size=560),
-             dict(n_steps=64, one_a_step=True)]
+             dict(n_steps=64, one_a_step=True), dict(wide=True)]
     for case, kw in enumerate(cases):
-        stacked, starts, n, plane = random_scan(rng, dev, **kw)
+        if kw.get("wide"):
+            stacked, starts, n, plane = wide_scan(rng, dev)
+            items = work_items(starts, n)
+            require(plane.shape[1] == 3840 and int(items.min())
+                    > ctas * warps, f"scan sweep {case}: {items} work "
+                    f"items a step, not all wider than {ctas * warps} warps")
+        else:
+            stacked, starts, n, plane = random_scan(rng, dev, **kw)
         packed = wf.pack_scan(stacked, starts, n, dev)
         widths = packed.step_tus[packed.step_tus > 0]
         if kw.get("per_size", 0) > 140:
@@ -262,32 +293,25 @@ def phase_compare(errs: dict) -> None:
         "flags and ref_ok patterns (unavailable references outside the "
         "plane too), flat and non-flat 32x32 edges; one of 4 steps of ~560 "
         f"TUs (wider than the kernel's {ctas} x {warps} warps); one of 64 "
-        "steps of one TU each; a split run [0, k) + [k, n) equal to one "
-        "run in each")
+        "steps of one TU each; one at 4K plane width of 4 steps of 430 work "
+        "items (40 32x32 TUs of 8 items each), each step reading what "
+        "earlier steps wrote; a split run [0, k) + [k, n) equal to one run "
+        "in each")
 
 
 def _stream_bytes(fn: str) -> bytes:
     """A committed stream, checked against data/SHA256SUMS."""
-    with open(os.path.join(DATA, "SHA256SUMS")) as f:
-        sums = dict(reversed(line.split()) for line in f if line.strip())
-    with open(os.path.join(DATA, fn), "rb") as f:
-        data = f.read()
-    require(hashlib.sha256(data).hexdigest() == sums[fn],
-            f"{fn} does not match its sha256")
+    from p265_tpu_torch.testgen.streams import committed
+    data = committed(fn.removesuffix(".265"))
+    require(data is not None, f"{fn} is not committed")
     return data
 
 
 def _bit_exact(frames, gold, what: str) -> None:
-    require(len(frames) == len(gold), f"{what}: {len(frames)} frames, "
-            f"golden has {len(gold)}")
-    for f, g in zip(frames, gold):
-        require(f.poc == g.poc, f"{what}: output order differs")
-        for c in range(3):
-            require(np.array_equal(f.planes[c], g.planes[c]),
-                    f"{what}: poc {f.poc} plane {c} differs from golden")
-            require(np.array_equal(f.prefilter[c].cpu().numpy(),
-                                   g.prefilter[c]),
-                    f"{what}: poc {f.poc} prefilter {c} differs from golden")
+    """Every plane of every frame, pre- and post-filter, equal to golden's
+    (np.array_equal); raises otherwise."""
+    from p265_tpu_torch.run_config import gate
+    gate(frames, gold, what)
 
 
 def _stats(dec) -> str:
@@ -337,33 +361,13 @@ def _counted(what: str, fn):
     return out, launches
 
 
-class _Dispatches:
-    """Record (pocs, scan steps) of every batch that build_batch packs
-    while the block runs; a batch with no scan TU bucket counts 0 steps
-    (scan_plane launches nothing for it)."""
-
-    def __enter__(self):
-        from p265_tpu_torch.pipeline import decoder as dm
-        self.dm, self.orig, self.seen = dm, dm.build_batch, []
-
-        def spy(tplans, plans, **kw):
-            batch = self.orig(tplans, plans, **kw)
-            self.seen.append(([p.poc for p in plans],
-                              batch["n_steps"] if batch["tu"] else 0))
-            return batch
-        dm.build_batch = spy
-        return self.seen
-
-    def __exit__(self, *exc):
-        self.dm.build_batch = self.orig
-
-
 def _dag_pass(data: bytes, dag: int) -> dict:
     """One pass of PipelinedTorchDecoder("cuda", frame_dag_max=dag): wall
     seconds to every plane on the host, the frames, dag_batched, the
     kernels' launches, and (pocs, scan steps) of every dispatch."""
     from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
-    with _Dispatches() as dispatches:
+    from p265_tpu_torch.run_config import Dispatches
+    with Dispatches() as dispatches:
         dec = PipelinedTorchDecoder("cuda", frame_dag_max=dag)
 
         def run():
@@ -609,6 +613,7 @@ def phase_1080() -> tuple:
     from p265_tpu_torch.golden.decoder import GoldenDecoder
     from p265_tpu_torch.kernels import _build
     from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
+    from p265_tpu_torch.run_config import Dispatches
     data = _stream_bytes(os.path.basename(STREAM))
     t0 = time.perf_counter()
     gold = GoldenDecoder().decode_stream(data)
@@ -617,7 +622,7 @@ def phase_1080() -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    with _Dispatches() as dispatches:
+    with Dispatches() as dispatches:
         dec = PipelinedTorchDecoder("cuda")
         t0 = time.perf_counter()
         frames = dec.decode_stream(data)
@@ -658,6 +663,59 @@ def phase_1080() -> tuple:
         f"{(max(times) - best) / best * 100:.1f}%; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     return launches, gold_planes, steps
+
+
+def start_goldens(tmp: str) -> tuple:
+    """The port's GoldenDecoder on every STREAMS stream, in GOLDEN_WORKERS
+    spawned processes, the longest first; -> (pool, {name: AsyncResult of
+    run_config.save_golden})."""
+    import multiprocessing as mp
+    from p265_tpu_torch.run_config import save_golden
+    pool = mp.get_context("spawn").Pool(GOLDEN_WORKERS)
+    jobs = {name: pool.apply_async(save_golden, (
+        name, os.path.join(tmp, name + ".npz"))) for name in reversed(STREAMS)}
+    return pool, jobs
+
+
+def phase_streams(jobs: dict) -> None:
+    """Each STREAMS stream on the card: one cold and one warm pass, both
+    bit-exact against golden, launches counted in each."""
+    from p265_tpu_torch.run_config import decode_pass, load_golden, mib, split
+    from p265_tpu_torch.testgen.streams import get_stream, stream_info
+    names = ("itransform", "mc", "scan")
+    for name, want in STREAMS.items():
+        t0 = time.perf_counter()
+        path, golden_s = jobs[name].get(timeout=900)
+        waited = time.perf_counter() - t0
+        gold = load_golden(path)
+        data = get_stream(name)
+        info = stream_info(data)
+        what = f"{name} ({info['width']}x{info['height']}, {len(gold)} frames)"
+        passes = []
+        for i in range(2):
+            p = decode_pass(data, "cuda")
+            _bit_exact(p["frames"], gold, f"{what} pass {i}")
+            launches = p["launches"]
+            require(tuple(launches[k] for k in names) == want,
+                    f"{what}: launches {launches}, expected "
+                    f"{dict(zip(names, want))}")
+            scans = sum(1 for _, st in p["dispatches"] if st > 0)
+            require(launches["scan"] == scans, f"{what}: {launches['scan']}"
+                    f" scan launches for {scans} dispatches with scan steps")
+            passes.append(dict(seconds=p["seconds"], peak=p["peak"],
+                               launches=launches, stats=p["stats"],
+                               steps=[st for _, st in p["dispatches"]]))
+            del p
+        cold, warm = passes
+        log(f"stream {what}: bit-exact vs golden in both passes (every "
+            f"plane, pre- and post-filter); cold {cold['seconds']:.4f} s, "
+            f"warm {warm['seconds']:.4f} s = "
+            f"{len(gold) / warm['seconds']:.4f} fps; peak "
+            f"{mib(max(q['peak'] for q in passes))}; launches "
+            f"{cold['launches']}; scan steps of the widest dispatch "
+            f"{max(cold['steps'])} (a dispatch: {cold['steps']}); golden "
+            f"{golden_s:.2f} s in a worker, waited {waited:.2f} s; warm "
+            f"stats {split(warm['stats'])}")
 
 
 def phase_sharded(gold_planes: dict, steps: list) -> dict:
@@ -963,20 +1021,29 @@ def phase_timing(launches: dict, sharded: dict, dag: dict,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     kind = phase_device()
-    phase_build()
-    errs = {k: 0 for k in KERNELS}
-    phase_compare(errs)
-    phase_small_streams()
-    phase_frame_dag(SMALL[1][1], warm=0)
-    phase_unfused()
-    phase_options()
-    phase_cli()
-    launches, gold_planes, steps = phase_1080()
+    with tempfile.TemporaryDirectory() as tmp:
+        pool, jobs = start_goldens(tmp)
+        try:
+            phase_build()
+            errs = {k: 0 for k in KERNELS}
+            phase_compare(errs)
+            phase_small_streams()
+            phase_frame_dag(SMALL[1][1], warm=0)
+            phase_unfused()
+            phase_options()
+            phase_cli()
+            launches, gold_planes, steps = phase_1080()
+            phase_streams(jobs)
+        finally:
+            pool.terminate()
+            pool.join()
     dag = phase_frame_dag(RA_STREAM, warm=3)
     sharded = phase_sharded(gold_planes, steps)
     rows = phase_timing(launches, sharded, dag, errs)
+    log(f"chip_smoke: total wall time {time.perf_counter() - t_start:.1f} s")
     require("jax" not in sys.modules, "jax was imported")
     ref = sorted(m for m in sys.modules
                  if m == "p265_tpu" or m.startswith("p265_tpu."))

@@ -1,3 +1,7 @@
+# Deviation from p265_tpu/syntax/ctu.py: in _wpp_lane, a row whose row
+# above ended before its second CTU (no post-CTU-1 snapshot) raises a
+# ValueError that names the row, where the original restores a None
+# snapshot and fails inside the native code.
 """CTU-level syntax: coding quadtree, CU/PU/TU, SAO params (spec 7.3.8).
 
 Stage-A design (SURVEY.md 7.1): parsing emits a flat FramePlan (TU records in
@@ -648,6 +652,11 @@ class CtuCoder:
                 if err:
                     return 0, None
                 snap = snaps[r - 1]
+            if snap is None:
+                # the row above hit end_of_slice_segment_flag before its
+                # second CTU: no sync point exists, the stream is corrupt
+                raise ValueError(f"WPP row {r}: row {r - 1} ended before its "
+                                 "second CTU, so there is no context to sync")
             ctx.restore(snap)
         engine = native_mod.NativeCabacDecoder(
             BitReader(self.substreams.chunks[r]), ctx)

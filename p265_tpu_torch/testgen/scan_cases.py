@@ -2,7 +2,9 @@
 its plain version, wavefront.scan_packed_ref: `random_scan` builds the
 expand() fields and step starts of one scan over a random plane, with
 every mode, size and flag, unavailable references, empty steps, steps
-wider than the kernel's warps and steps of one TU."""
+wider than the kernel's warps and steps of one TU; `wide_scan` builds one
+at 4K plane width whose steps have more work items than the kernel's
+cluster has warps, each step reading what earlier steps wrote."""
 from __future__ import annotations
 
 import numpy as np
@@ -76,12 +78,78 @@ def random_scan(rng, dev, n_steps: int = 48, per_size: int = 140,
             ramp = np.concatenate([x0[:, :1] + np.arange(nr // 2),
                                    x0[:, 1:] + np.arange(nr // 2)], 1)
             idx[flat], ok[flat], ff[flat] = ramp[flat], True, True
-        stacked[log2] = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                         for k, v in dict(
-            ref_idx=idx.astype(np.int64), ref_ok=ok, mode=mode,
-            filter_flag=ff, strong_allowed=sa, dc_edge=de,
-            pos=pos.astype(np.int64),
-            residual=rng.integers(-300, 300, (n, s, s)).astype(np.int32),
-        ).items()}
+        stacked[log2] = _fields(rng, dev, s, idx, ok, mode, ff, sa, de, pos)
+        starts[log2] = np.searchsorted(st, np.arange(n_steps + 1))
+    return stacked, starts, n_steps, torch.from_numpy(plane).to(dev)
+
+
+def _fields(rng, dev, s, idx, ok, mode, ff, sa, de, pos) -> dict:
+    """One size bucket of expand() fields on `dev`, with random residuals
+    to +-300."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in dict(
+        ref_idx=idx.astype(np.int64), ref_ok=ok, mode=mode,
+        filter_flag=ff, strong_allowed=sa, dc_edge=de,
+        pos=pos.astype(np.int64),
+        residual=rng.integers(-300, 300, (len(mode), s, s)).astype(np.int32),
+    ).items()}
+
+
+# TUs a step of wide_scan, per size: 8 + 2 + 1 + 1 work items of the scan
+# kernel each (a warp's item is at most 128 samples)
+WIDE_TUS = {5: 40, 4: 30, 3: 25, 2: 25}
+
+
+def work_items(starts: dict, n_steps: int) -> np.ndarray:
+    """The scan kernel's work items in each step: a TU of s x s samples is
+    max(1, s * s / 128) items."""
+    out = np.zeros(n_steps, np.int64)
+    for log2, st in starts.items():
+        out += np.diff(np.asarray(st)[:n_steps + 1]) * max(
+            1, (1 << (2 * log2)) // 128)
+    return out
+
+
+def wide_scan(rng, dev, n_steps: int = 4, cols: int = 3840):
+    """A scan over a plane of 4K width whose every step is wider than the
+    scan kernel's cluster (16 CTAs x 16 warps), so the kernel loops over
+    its items -> (stacked, starts, n_steps, plane).  Step k writes the
+    32x32 tiles of tile row k + 1 (rows 32(k + 1) on): WIDE_TUS TUs, each
+    alone in its tile, 430 work items a step.  The references of a step-k
+    TU lie in the tile rows that steps 0..k-1 wrote (step 0: row band 0,
+    which no TU writes), all available, none, or a random mix, and a third
+    of the unavailable ones point outside the plane; every mode, random
+    smoothing / strong / edge flags."""
+    tile = 32
+    tiles_x = cols // tile
+    rows = tile * (n_steps + 1)
+    plane = rng.integers(0, 256, (rows, cols)).astype(np.int32)
+    stacked, starts = {}, {}
+    place = {log2: ([], []) for log2 in WIDE_TUS}  # (steps, tiles) by size
+    for k in range(n_steps):
+        perm = iter(rng.permutation(tiles_x).tolist())
+        for log2, n in WIDE_TUS.items():
+            for _ in range(n):
+                place[log2][0].append(k)
+                place[log2][1].append(next(perm))
+    for log2, (st, tx) in place.items():
+        s, n = 1 << log2, len(st)
+        st, tx = np.array(st), np.array(tx)
+        nr = 4 * s + 2
+        pos = np.stack([(st + 1) * tile + rng.integers(0, tile // s, n) * s,
+                        tx * tile + rng.integers(0, tile // s, n) * s], 1)
+        lo = np.where(st == 0, 0, tile)[:, None]
+        y = lo + (rng.random((n, nr)) * ((st + 1) * tile - lo[:, 0])[:, None]
+                  ).astype(np.int64)
+        idx = y * cols + rng.integers(0, cols, (n, nr))
+        r = rng.random(n)
+        ok = np.where((r < 0.4)[:, None], True, np.where(
+            (r < 0.5)[:, None], False, rng.random((n, nr)) < 0.7))
+        far = ~ok & (rng.random((n, nr)) < 0.33)
+        idx[far] = rng.choice([-7, -3 * cols, rows * cols + 11, 10 ** 12],
+                              int(far.sum()))
+        mode = rng.permutation(np.arange(n) % 35).astype(np.int32)
+        ff, sa, de = (rng.random(n) < 0.5 for _ in range(3))
+        stacked[log2] = _fields(rng, dev, s, idx, ok, mode, ff, sa, de, pos)
         starts[log2] = np.searchsorted(st, np.arange(n_steps + 1))
     return stacked, starts, n_steps, torch.from_numpy(plane).to(dev)

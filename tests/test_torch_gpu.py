@@ -24,7 +24,8 @@ from p265_tpu_torch.kernels import _build, itransform, mc, upload
 from p265_tpu_torch.pipeline import wavefront as wf
 from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
 from p265_tpu_torch.plan.frame_plan import build_tensor_plan
-from p265_tpu_torch.testgen.scan_cases import random_scan
+from p265_tpu_torch.testgen.scan_cases import (random_scan, wide_scan,
+                                               work_items)
 
 
 @pytest.fixture
@@ -270,3 +271,25 @@ def test_scan_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert not torch.equal(want, plane)
     assert torch.equal(got, want)
+
+
+def test_scan_kernel_loops_over_steps_wider_than_its_cluster(cuda):
+    """A scan at 4K plane width whose every step has 430 work items (40
+    32x32 TUs of 8 items each among them) against the cluster's 256 warps,
+    each step reading the tiles that earlier steps wrote: one launch, and
+    a split run, equal to scan_packed_ref."""
+    st, sd, n, plane = wide_scan(np.random.default_rng(11), cuda)
+    packed = wf.pack_scan(st, sd, n, cuda)
+    ctas, warps = wf.SCAN_SHAPE
+    assert plane.shape[1] == 3840
+    assert int(work_items(sd, n).min()) > ctas * warps
+    before = _build.LAUNCHES["scan"]
+    got = wf.scan_packed(packed, plane.clone(), 0, n)
+    split = wf.scan_packed(packed, wf.scan_packed(packed, plane.clone(), 0,
+                                                  2), 2, n)
+    assert _build.LAUNCHES["scan"] == before + 3
+    want = wf.scan_packed_ref(packed, plane.clone(), 0, n)
+    torch.cuda.synchronize()
+    assert not torch.equal(want, plane)
+    assert torch.equal(got, want)
+    assert torch.equal(split, want)

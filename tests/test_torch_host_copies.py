@@ -5,9 +5,11 @@ p265_tpu (parse, DPB, golden decoder, tensor plans, tables, the test
 encoder), so that it
 imports nothing of p265_tpu.  Each copy must equal its original after the
 import rewrite `p265_tpu` -> `p265_tpu_torch`, apart from the deviations
-listed here and in a comment at the top of the copy (two code changes, the
-first of which sends attach_pred_planes to the port's device MC, and three
-reworded comments); the two golden
+listed here and in a comment at the top of the copy (three code changes:
+attach_pred_planes goes to the port's device MC, the native parse builds
+into the port's build directory, and a WPP row whose row above ended
+before its second CTU raises a ValueError; and three reworded comments);
+the two golden
 decoders must decode the same planes and the two tensor plans must be
 equal, field by field; the committed test streams must be the ones the JAX
 package's encoder makes for their seeds, and the port's copy of the encoder
@@ -90,6 +92,21 @@ DEVIATIONS = {
          "        " + _HOST_MC[0] + "        " + _HOST_MC[1],
          "    from p265_tpu_torch.kernels.mc import build_inter_pred_device\n"
          "    pred = build_inter_pred_device(plan, refs or {}, device)\n"),
+    ],
+    "syntax/ctu.py": [
+        ("                snap = snaps[r - 1]\n"
+         "            ctx.restore(snap)\n",
+         "                snap = snaps[r - 1]\n"
+         "            if snap is None:\n"
+         "                # the row above hit end_of_slice_segment_flag before "
+         "its\n"
+         "                # second CTU: no sync point exists, the stream is "
+         "corrupt\n"
+         "                raise ValueError(f\"WPP row {r}: row {r - 1} ended "
+         "before its \"\n"
+         "                                 \"second CTU, so there is no "
+         "context to sync\")\n"
+         "            ctx.restore(snap)\n"),
     ],
     "native/__init__.py": [
         ('_SO = os.path.join(_DIR, "_cabac.so")',

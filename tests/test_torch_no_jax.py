@@ -1,15 +1,17 @@
 """The port must run where JAX is not installed, on its own.
 
 A fresh interpreter imports every p265_tpu_torch module (the sharded
-paths of p265_tpu_torch.shard, the test encoder and the CLI among them),
-loads the per-stage entry points and decodes the committed 96x64 LDP
-stream on CPU tensors (fused, unfused and with frame-DAG batching) against
-the port's own golden decoder; a second one runs every CLI subcommand;
-jax, jaxlib and ml_dtypes (on the GPU machine any of them would be an
-import crash) and every module of the JAX package p265_tpu must stay out
-of sys.modules.  Also: no source line of the package or of chip_smoke.py
-imports them, and chip_smoke.py exits nonzero with no result line when no
-CUDA device is present or when it stands alone, without the repo.
+paths of p265_tpu_torch.shard, the test encoder, the stream set, run_config
+and the CLI among them), loads the per-stage entry points and decodes the
+committed 96x64 LDP stream on CPU tensors (fused, unfused and with
+frame-DAG batching) against the port's own golden decoder, through
+run_config's gate too, and reads a committed stream of the stream set; a
+second one runs every CLI subcommand; jax, jaxlib and ml_dtypes (on the
+GPU machine any of them would be an import crash) and every module of the
+JAX package p265_tpu must stay out of sys.modules.  Also: no source line of
+the package or of chip_smoke.py imports them, and chip_smoke.py exits
+nonzero with no result line when no CUDA device is present or when it
+stands alone, without the repo.
 """
 import os
 import re
@@ -34,7 +36,8 @@ shard = {"p265_tpu_torch.shard." + m for m in ("mesh", "filters", "spatial",
                                                "decoder", "distributed")}
 assert shard <= set(mods), sorted(shard - set(mods))
 new = {"p265_tpu_torch." + m for m in ("testgen.encoder", "golden.trace",
-                                       "cli")}
+                                       "cli", "testgen.streams",
+                                       "run_config")}
 assert new <= set(mods), sorted(new - set(mods))
 from p265_tpu_torch.kernels.intra import predict_batch
 from p265_tpu_torch.kernels.loopfilter import (deblock, loop_filters,
@@ -46,6 +49,8 @@ from p265_tpu_torch.pipeline.wavefront import (reconstruct_scan,
                                                reconstruct_scan_plane)
 from p265_tpu_torch.golden.decoder import GoldenDecoder
 from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
+from p265_tpu_torch.run_config import gate
+from p265_tpu_torch.testgen.streams import get_stream, stream_info
 with open("p265_tpu_torch/data/s96x64_ldp5.265", "rb") as f:
     data = f.read()
 gold = GoldenDecoder().decode_stream(data)
@@ -55,6 +60,8 @@ for kw in ({}, dict(fused=False), dict(frame_dag_max=4)):
     for f, g in zip(got, gold):
         for c in range(3):
             assert np.array_equal(f.planes[c], g.planes[c])
+    gate(got, gold, str(kw))
+assert stream_info(get_stream("s4k"))["width"] == 3840
 bad = sorted(m for m in ("jax", "jaxlib", "ml_dtypes") if m in sys.modules)
 ref = sorted(m for m in sys.modules
              if m == "p265_tpu" or m.startswith("p265_tpu."))

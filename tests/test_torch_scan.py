@@ -26,7 +26,8 @@ from p265_tpu_torch.hls.params import PPS, SPS
 from p265_tpu_torch.kernels import upload
 from p265_tpu_torch.pipeline import wavefront as wf
 from p265_tpu_torch.testgen.encoder import IntraEncoder
-from p265_tpu_torch.testgen.scan_cases import random_scan
+from p265_tpu_torch.testgen.scan_cases import (WIDE_TUS, random_scan,
+                                               wide_scan, work_items)
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "p265_tpu_torch", "data")
@@ -182,4 +183,45 @@ def test_random_scan_cases(kw):
     assert not torch.equal(one, plane)
     split = wf.scan_packed_ref(packed, wf.scan_packed_ref(
         packed, plane.clone(), 0, n // 2), n // 2, n)
+    assert torch.equal(split, one)
+
+
+def test_wide_scan_case():
+    """The 4K-wide random scan the GPU tests and chip_smoke.py loop the
+    scan kernel with: every step has more work items than the kernel's
+    cluster has warps, its TUs sit in distinct tiles of its own tile row,
+    every available in-plane reference of a step after the first lies in
+    the tile rows that earlier steps wrote; a split run of the plain
+    version equals one run."""
+    stacked, starts, n, plane = wide_scan(np.random.default_rng(7), "cpu")
+    cols = plane.shape[1]
+    assert cols == 3840
+    items = work_items(starts, n)
+    assert items.tolist() == [430] * n
+    assert int(items.min()) > int(np.prod(wf.SCAN_SHAPE))
+    read_back = 0
+    for log2, d in stacked.items():
+        step_of = np.repeat(np.arange(n), np.diff(starts[log2]))
+        assert np.bincount(step_of, minlength=n).tolist() == (
+            [WIDE_TUS[log2]] * n)
+        pos = d["pos"].numpy()
+        assert (pos[:, 0] // 32 == step_of + 1).all()
+        idx, ok = d["ref_idx"].numpy(), d["ref_ok"].numpy()
+        inside = ok & (idx >= 0) & (idx < plane.numel())
+        band = idx // cols // 32
+        for u in range(len(idx)):
+            b = band[u][inside[u]]
+            if step_of[u]:
+                assert ((b >= 1) & (b <= step_of[u])).all()
+                read_back += len(b)
+            else:
+                assert (b == 0).all()
+    assert read_back > 0
+    tiles = np.concatenate([d["pos"].numpy() // 32 for d in stacked.values()])
+    assert len({tuple(t) for t in tiles}) == len(tiles)
+    packed = wf.pack_scan(stacked, starts, n, "cpu")
+    one = wf.scan_packed_ref(packed, plane.clone(), 0, n)
+    assert not torch.equal(one, plane)
+    split = wf.scan_packed_ref(packed, wf.scan_packed_ref(
+        packed, plane.clone(), 0, 1), 1, n)
     assert torch.equal(split, one)
