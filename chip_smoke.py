@@ -32,7 +32,8 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    bit-exact.
 8. the CLI as a subprocess: decode --device cuda --pipelined --md5
    --metrics; golden's MD5 and the metrics keys.
-9. s1080_ldp4 (1920x1080, IDR + 3 P, QP 32; p265_tpu_torch/data): one
+9. s1080_ldp4 (1920x1080, IDR + 3 P, QP 32; p265_tpu_torch/data; golden
+   decoded in the first worker process of phase 10's): one
    cold pass bit-exact against GoldenDecoder on every plane, with the
    kernel launch counters reset just before it (3 MC, 7 residual and 4
    scan launches a pass); then 3 warm passes.
@@ -64,13 +65,31 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
 13. per-kernel time against the plain version and the bound, over every
    call the main path made on one pass of s1080_ldp4: the CUDA-event
    window of the calls (`ms`, host launch gaps included) and the kernel's
-   own device time from torch.profiler (`device_ms`).  The scan row: every
-   main-path scan equal to its plain version, the window of scan_plane in
-   turns with the plain version (one run per turn), the device time, the
-   bound by bytes, and the barrier floor (`floor_ms`: the same launches
-   computing no TU); the TUs a step (max, median), the launch shape (one
-   cluster: CTAs, warps), and per step with TUs the floor and the chain
-   (device - floor).
+   own device time from torch.profiler (`device_ms`).  Each kernel's bound
+   is the function's, from p265_tpu_torch.roofline over the census of
+   s1080_ldp4 (not from the tensors the calls carry; the census's TUs of
+   each size and MC blocks of each geometry must equal the calls'), and
+   `bound_share` is the bound over the device time: above 1.05, which no
+   card can give, fails.  The scan row: every main-path scan equal to its
+   plain version, the window of scan_plane in turns with the plain version
+   (one run per turn), the device time, and the barrier floor
+   (`floor_ms`: the same launches computing no TU); the TUs a step (max,
+   median), the launch shape (one cluster: CTAs, warps), and per step with
+   TUs the floor and the chain (device - floor).
+14. measuring modules: `python -m p265_tpu_torch.bench --golden DIR` as a
+   subprocess (s1080_ldp4 gated against golden, its s1080_ldp16
+   steady-state row gated too, both goldens read from the workers' files;
+   exactly one stdout line, JSON with metric, value > 0, unit and
+   vs_baseline, exit 0; the launches of every pass on its stderr equal
+   KERNELS', the steady row's STREAMS'; its stderr record is printed).
+   vs_baseline here divides a golden decode timed in a worker that shared
+   the host with the others and the card phases: a smoke figure, not the
+   metric, which a standalone bench run gives.  Then bench_kernels
+   in-process (every rate above 0, every share at most 1.05),
+   graft_entry.entry() on the card torch.equal to its forward on CPU
+   tensors (one K1 launch), and graft_entry.dryrun_multichip(2) on the
+   card (NCCL with two cards, else two gloo ranks sharing cuda:0), every
+   rank's K1, K2 and scan launches above 0; its wall time.
 
 Every path from phase 4 on is driven with the kernels' launch counts set
 to 0 just before it and read just after; all must be above 0 (launches
@@ -123,10 +142,6 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, launches a pass)
              "p265_tpu/pipeline/wavefront.py:455 (lax.scan, XLA; not a "
              "Pallas kernel)", 4),
 }
-# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, and int32
-# multiply-adds/s on the CUDA cores (132 SMs x 64 int32 lanes x 1.98 GHz)
-PEAK_BYTES = 3.35e12
-PEAK_INT32 = 132 * 64 * 1.98e9
 
 
 def log(*a) -> None:
@@ -608,16 +623,17 @@ def phase_cli() -> None:
         + json.dumps({k: rec[k] for k in keys}))
 
 
-def phase_1080() -> tuple:
+def phase_1080(jobs: dict) -> tuple:
     import torch
-    from p265_tpu_torch.golden.decoder import GoldenDecoder
     from p265_tpu_torch.kernels import _build
     from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
-    from p265_tpu_torch.run_config import Dispatches
+    from p265_tpu_torch.run_config import Dispatches, load_golden
     data = _stream_bytes(os.path.basename(STREAM))
     t0 = time.perf_counter()
-    gold = GoldenDecoder().decode_stream(data)
-    log(f"golden NumPy decode: {time.perf_counter() - t0:.2f} s")
+    path, golden_s = jobs["s1080_ldp4"].get(timeout=900)
+    gold = load_golden(path)
+    log(f"golden NumPy decode: {golden_s:.2f} s in a worker, waited "
+        f"{time.perf_counter() - t0:.2f} s")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -666,14 +682,16 @@ def phase_1080() -> tuple:
 
 
 def start_goldens(tmp: str) -> tuple:
-    """The port's GoldenDecoder on every STREAMS stream, in GOLDEN_WORKERS
-    spawned processes, the longest first; -> (pool, {name: AsyncResult of
-    run_config.save_golden})."""
+    """The port's GoldenDecoder on s1080_ldp4 (phases 9 and 14), then on
+    every STREAMS stream, the longest first, in GOLDEN_WORKERS spawned
+    processes; -> (pool, {name: AsyncResult of run_config.save_golden,
+    which writes tmp/<name>.npz})."""
     import multiprocessing as mp
     from p265_tpu_torch.run_config import save_golden
     pool = mp.get_context("spawn").Pool(GOLDEN_WORKERS)
+    names = ["s1080_ldp4", *reversed(STREAMS)]
     jobs = {name: pool.apply_async(save_golden, (
-        name, os.path.join(tmp, name + ".npz"))) for name in reversed(STREAMS)}
+        name, os.path.join(tmp, name + ".npz"))) for name in names}
     return pool, jobs
 
 
@@ -834,64 +852,61 @@ def _device_ms(fn, calls, symbol: str, reps: int = 10):
     return us / 1e3 / reps if us else None
 
 
-def _work_mc(groups) -> tuple:
-    """(bytes, int32 multiply-adds) of one grouped MC call: each reference
-    stack read once, the block records read, the output written."""
-    stacks = {g[0].data_ptr(): g[0].numel() for g in groups}
-    nbytes, ops = sum(stacks.values()), 0
-    for refs, pos, ridx, mv, block, taps in groups:
-        n = pos.shape[0]
-        nbytes += n * (8 + 4 + 8) + 4 * n * block * block
-        ops += n * ((block + taps - 1) * block + block * block) * taps
-    return nbytes, ops
+def _bound(name: str, w: dict, card: str, measured_ms) -> dict:
+    """The roofline bound of kernel `name` over one pass (w: roofline.work
+    of the stream's census) and its share of the measured ms; the share
+    must not exceed MAX_SHARE."""
+    from p265_tpu_torch.roofline import MAX_SHARE, bound
+    wk = w["kernels"][name]
+    ms, by = bound(wk, card)
+    share = ms / measured_ms
+    require(share <= MAX_SHARE, f"{name}: bound {ms} ms is {share:.3f} of "
+            f"its measured {measured_ms} ms, above {MAX_SHARE}")
+    return dict(bytes=wk.bytes, ops=wk.ops,
+                ops_type="fp32" if wk.fp32 else "int32", bound_ms=ms,
+                bound_us=ms * 1e3, bound_by=by, bound_share=share)
 
 
-def _work_itransform(groups) -> tuple:
-    """(bytes, int32 multiply-adds) of one grouped residual call: every
-    field the kernel reads, read once, and the output written; s^3
-    multiply-adds a TU in the even/odd form, 2 s^3 for a 4x4 DST TU."""
-    nbytes, ops = 0, 0
-    for log2, f in groups.items():
-        n, s = f["coeffs"].shape[0], 1 << log2
-        for k in ("coeffs", "qp", "tskip", "is_dst", "bypass", "scale_m"):
-            if f.get(k) is not None:
-                nbytes += f[k].numel() * f[k].element_size()
-        nbytes += 4 * n * s * s
-        n_dst = int(f["is_dst"].sum()) if (log2 == 2 and f.get("is_dst")
-                                           is not None) else 0
-        ops += (n + n_dst) * s ** 3
-    return nbytes, ops
+def _census_matches(pics: list, calls: dict) -> None:
+    """The census counts the TUs of each size and the MC blocks of each
+    geometry that the pass's K1 and K2 calls carry (a stream with no
+    bi-prediction, where the two are equal)."""
+    want_tu, want_mc = {}, {}
+    for p in pics:
+        for log2, split in p["tus"].items():
+            want_tu[log2] = want_tu.get(log2, 0) + sum(
+                sum(c.values()) for c in split.values())
+        for (plane, block, _), n in p["mc"].items():
+            key = (8 if plane == "y" else 4, block)
+            want_mc[key] = want_mc.get(key, 0) + n
+    got_tu, got_mc = {}, {}
+    for a, _ in calls["itransform"]:
+        for log2, f in a[0].items():
+            if f["coeffs"].shape[0]:
+                got_tu[log2] = got_tu.get(log2, 0) + f["coeffs"].shape[0]
+    for a, _ in calls["mc"]:
+        for refs, pos, ridx, mv, block, taps in a[0]:
+            got_mc[taps, block] = got_mc.get((taps, block), 0) + pos.shape[0]
+    require(got_tu == want_tu, f"census TUs {want_tu}, K1 calls {got_tu}")
+    require(got_mc == {k: n for k, n in want_mc.items() if n},
+            f"census MC blocks {want_mc}, K2 calls {got_mc}")
 
 
-def _work_scan(stacked: dict, starts: dict, n_steps: int) -> tuple:
-    """(bytes, int32 multiply-adds) of one scan: per TU its reference
-    indices (int64) and ref_ok read once, the available reference samples
-    (int32) gathered once, its mode, flags and position, its residual read
-    and its s x s output written, plus the step starts; planar costs 4
-    multiply-adds a sample, angular 2, and a smoothed reference 2."""
-    nbytes, ops = 4 * len(starts) * (n_steps + 1), 0
-    for log2, d in stacked.items():
-        s = 1 << log2
-        n = int(starts[log2][n_steps])
-        if not n:
-            continue
-        ok = d["ref_ok"][:n]
-        mode = d["mode"][:n]
-        nbytes += (ok.numel() * 9 + int(ok.sum()) * 4
-                   + n * (4 + 3 + 16 + 8 * s * s))
-        ops += (s * s * (4 * int((mode == 0).sum())
-                         + 2 * int((mode >= 2).sum()))
-                + 2 * (4 * s + 2) * int(d["filter_flag"][:n].sum()))
-    return nbytes, ops
+def _launched(name: str, groups) -> bool:
+    """Whether a grouped K1 or K2 call launches (some group has a row)."""
+    if name == "itransform":
+        return any(f["coeffs"].shape[0] for f in groups.values())
+    return any(g[1].shape[0] for g in groups)
 
 
 def _scan_row(calls: list, launches: dict, sharded: dict, dag: dict,
-              errs: dict) -> dict:
+              errs: dict, w: dict, card: str) -> dict:
     """The scan kernel over every scan of one s1080_ldp4 pass: each equal
     to its plain version; the window of scan_plane (packing included) in
     turns with the plain version (one run per turn: the plain I picture
-    takes seconds); the kernel's device time; its bound; and the barrier
-    floor, the device time of the same launches computing no TU."""
+    takes seconds); the kernel's device time; its bound (roofline, from the
+    census `w`); and the barrier floor, the device time of the same
+    launches computing no TU."""
     import torch
     from p265_tpu_torch.pipeline import wavefront as wf
     cl = [(a, k) for a, k in calls if a[2] > 0]
@@ -922,13 +937,7 @@ def _scan_row(calls: list, launches: dict, sharded: dict, dag: dict,
     dev_ms = _device_ms(wf.scan_packed, packs, "scan_kernel")
     floor_ms = _device_ms(lambda *a: wf.scan_packed(*a, barrier_only=True),
                           packs, "scan_kernel")
-    nbytes = ops = 0
-    for (st, sd, n, _), _ in cl:
-        b, o = _work_scan(st, sd, n)
-        nbytes, ops = nbytes + b, ops + o
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT32 * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    b = _bound("scan", w, card, dev_ms or ms)
     steps = [n for (_, _, n, _), _ in cl]
     live = [int(pk.step_tus.astype(bool).sum()) for (pk, *_), _ in packs]
     tus = np.concatenate([pk.step_tus for (pk, *_), _ in packs])
@@ -940,10 +949,10 @@ def _scan_row(calls: list, launches: dict, sharded: dict, dag: dict,
         f"TUs {live}), TUs a step max {tus_max}, median {tus_med}; launch "
         f"one cluster of {ctas} CTAs x {warps} warps; kernel "
         f"{k1:.4f}/{k2:.4f} ms (device time {dev_ms} ms, barrier floor "
-        f"{floor_ms} ms), plain {p1:.4f}/{p2:.4f} ms; "
-        f"{nbytes} bytes ({t_bytes:.4f} ms), {ops} int32 multiply-adds "
-        f"({t_ops:.4f} ms); bound {bound_ms:.4f} ms by {bound_by}, kernel "
-        f"at {ms / bound_ms:.1f}x its bound; a step with TUs: device "
+        f"{floor_ms} ms), plain {p1:.4f}/{p2:.4f} ms; census "
+        f"{b['bytes']} bytes, {b['ops']} {b['ops_type']} multiply-adds; "
+        f"bound {b['bound_ms']:.6f} ms by {b['bound_by']}, share "
+        f"{b['bound_share']:.6f}; a step with TUs: device "
         f"{(dev_ms or 0) / sum(live) * 1e3:.3f} us, floor {floor_us:.3f} "
         f"us, chain (device - floor) {chain_us:.3f} us")
     src, rep, _ = KERNELS["scan"]
@@ -954,27 +963,36 @@ def _scan_row(calls: list, launches: dict, sharded: dict, dag: dict,
                 frame_dag_launches={str(k): v["launches"]["scan"]
                                     for k, v in dag.items()},
                 max_abs_err=errs["scan"], ms=ms, device_ms=dev_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_us=bound_ms * 1e3,
-                bound_by=bound_by, floor_ms=floor_ms, steps=steps,
+                plain_ms=plain_ms, **b, floor_ms=floor_ms, steps=steps,
                 floor_us_a_step=floor_us, chain_us_a_step=chain_us,
                 library_ms=None)
 
 
-def phase_timing(launches: dict, sharded: dict, dag: dict,
-                 errs: dict) -> list:
+def phase_timing(launches: dict, sharded: dict, dag: dict, errs: dict,
+                 card: str) -> list:
     import torch
+    from p265_tpu_torch import roofline
     from p265_tpu_torch.kernels import itransform, mc
     with open(STREAM, "rb") as f:
-        calls = _capture_main_path(f.read())
+        data = f.read()
+    calls = _capture_main_path(data)
+    t0 = time.perf_counter()
+    pics = roofline.census(data)
+    w = roofline.work(pics)
+    _census_matches(pics, calls)
+    log(f"roofline census of s1080_ldp4: {time.perf_counter() - t0:.2f} s, "
+        "its TUs and blocks equal to the main path's K1 and K2 calls; "
+        "bounds of one pass: " + ", ".join(
+            f"{k} {roofline.bound(v, card)[0]:.6f} ms"
+            for k, v in w["kernels"].items()))
     pairs = {"itransform": (itransform.batch_residual_grouped,
                             itransform.batch_residual_grouped_ref,
-                            _work_itransform, "itransform_grouped_kernel"),
+                            "itransform_grouped_kernel"),
              "mc": (mc.mc_blocks_grouped, mc.mc_blocks_grouped_ref,
-                    _work_mc, "mc_grouped_kernel")}
+                    "mc_grouped_kernel")}
     rows = []
-    for name, (kern, plain, work, symbol) in pairs.items():
-        # a call whose groups are all empty launches nothing
-        cl = [(a, k) for a, k in calls[name] if work(a[0])[0]]
+    for name, (kern, plain, symbol) in pairs.items():
+        cl = [(a, k) for a, k in calls[name] if _launched(name, a[0])]
         require(len(cl) == KERNELS[name][2], f"{len(cl)} {name} launches "
                 f"in one pass, expected {KERNELS[name][2]}")
         for a, k in cl:
@@ -987,21 +1005,12 @@ def phase_timing(launches: dict, sharded: dict, dag: dict,
         p2 = _time_calls(plain, cl)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
         dev_ms = _device_ms(kern, cl, symbol)
-        t_bytes = t_ops = bound_ms = 0.0
-        nbytes = ops = 0
-        for a, _ in cl:
-            b, o = work(a[0])
-            nbytes, ops = nbytes + b, ops + o
-            t_bytes += b / PEAK_BYTES * 1e3
-            t_ops += o / PEAK_INT32 * 1e3
-            bound_ms += max(b / PEAK_BYTES, o / PEAK_INT32) * 1e3
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        b = _bound(name, w, card, dev_ms or ms)
         log(f"{name}: {len(cl)} grouped calls per s1080_ldp4 pass; kernel "
             f"{k1:.4f}/{k2:.4f} ms (device time {dev_ms} ms), plain "
-            f"{p1:.4f}/{p2:.4f} ms; {nbytes} "
-            f"bytes ({t_bytes:.4f} ms), {ops} int32 multiply-adds "
-            f"({t_ops:.4f} ms); bound {bound_ms:.4f} ms by {bound_by}, "
-            f"kernel at {ms / bound_ms:.1f}x its bound")
+            f"{p1:.4f}/{p2:.4f} ms; census {b['bytes']} bytes, {b['ops']} "
+            f"{b['ops_type']} multiply-adds; bound {b['bound_ms']:.6f} ms by "
+            f"{b['bound_by']}, share {b['bound_share']:.6f}")
         src, rep, _ = KERNELS[name]
         rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
                          launches=launches[name],
@@ -1012,12 +1021,80 @@ def phase_timing(launches: dict, sharded: dict, dag: dict,
                              str(k): v["launches"][name]
                              for k, v in dag.items()},
                          max_abs_err=errs[name], ms=ms, device_ms=dev_ms,
-                         plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_us=bound_ms * 1e3,
-                         bound_by=bound_by, library_ms=None))
-    rows.append(_scan_row(calls["scan"], launches, sharded, dag, errs))
+                         plain_ms=plain_ms, **b, library_ms=None))
+    rows.append(_scan_row(calls["scan"], launches, sharded, dag, errs, w,
+                          card))
     torch.cuda.synchronize()
     return rows
+
+
+def phase_measuring(golden_dir: str) -> None:
+    """The port's measuring modules on the card: the bench as a
+    subprocess (exactly one stdout line, JSON with the four keys, value >
+    0, exit 0; its golden planes and seconds read from the workers' files
+    in golden_dir), the kernel rates, the graft entry against its CPU
+    forward, and the sharded dry run over two ranks."""
+    import torch
+    from p265_tpu_torch import bench_kernels, graft_entry
+    from p265_tpu_torch.kernels import _build
+    from p265_tpu_torch.roofline import MAX_SHARE
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "p265_tpu_torch.bench",
+                        "--golden", golden_dir], cwd=ROOT,
+                       capture_output=True, text=True, timeout=900)
+    for line in r.stderr.splitlines():
+        log("  bench stderr:", line)
+    require(r.returncode == 0, f"bench exited {r.returncode}")
+    lines = r.stdout.splitlines()
+    require(len(lines) == 1, f"bench printed {len(lines)} stdout lines")
+    rec = json.loads(lines[0])
+    require(list(rec) == ["metric", "value", "unit", "vs_baseline"]
+            and rec["value"] > 0, f"bench line {rec}")
+    # the bench's records; torch's own warnings on stderr are not JSON
+    err = [json.loads(line) for line in r.stderr.splitlines()
+           if line.startswith("{")]
+    passes = [e for e in err if "pass" in e]
+    want = {k: v[2] for k, v in KERNELS.items()}
+    require(len(passes) == 4 and all(p["launches"] == want for p in passes),
+            f"bench passes' launches {[p['launches'] for p in passes]}, "
+            f"expected 4 passes of {want}")
+    steady = [e["steady"] for e in err if "steady" in e]
+    want16 = dict(zip(KERNELS, STREAMS["s1080_ldp16"]))
+    require(len(steady) == 1 and steady[0]["launches"] == want16,
+            f"bench steady row {steady}, expected launches {want16}")
+    log(f"bench: {lines[0]} ({time.perf_counter() - t0:.2f} s; its "
+        "vs_baseline is a smoke figure: the golden seconds come from a "
+        "worker that shared the host)")
+
+    rows = bench_kernels.run("cuda")
+    for row in rows:
+        log("  bench_kernels:", json.dumps(row))
+        rate = row.get("tu_per_s", row.get("blocks_per_s"))
+        require(row["ctu_per_s"] > 0 and rate > 0, f"bench_kernels {row}")
+        require(row["bound_share"] <= MAX_SHARE,
+                f"bench_kernels: share above {MAX_SHARE}: {row}")
+
+    fwd, args = graft_entry.entry("cuda")
+    _build.reset_launch_counts()
+    got = fwd(*args)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    require(launches["itransform"] == 1,
+            f"graft entry: launches {launches}, K1 expected once")
+    require(torch.equal(got.cpu(), fwd(*(a.cpu() for a in args))),
+            "graft entry on the card differs from its forward on CPU "
+            "tensors")
+    log(f"graft entry on cuda == on CPU tensors ({tuple(got.shape)}), "
+        f"launches {launches}")
+
+    t1 = time.perf_counter()
+    out = graft_entry.dryrun_multichip(2)
+    require(all(n[k] > 0 for n in out["launches"] for k in KERNELS),
+            f"dryrun_multichip: launches per rank {out['launches']}, each "
+            "kernel expected on every rank")
+    log(f"dryrun_multichip(2): bit-exact over {out['backend']}, launches "
+        f"per rank {out['launches']} ({time.perf_counter() - t1:.2f} s)")
+    log(f"phase 14 (measuring modules): {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1035,14 +1112,15 @@ def main() -> int:
             phase_unfused()
             phase_options()
             phase_cli()
-            launches, gold_planes, steps = phase_1080()
+            launches, gold_planes, steps = phase_1080(jobs)
             phase_streams(jobs)
         finally:
             pool.terminate()
             pool.join()
-    dag = phase_frame_dag(RA_STREAM, warm=3)
-    sharded = phase_sharded(gold_planes, steps)
-    rows = phase_timing(launches, sharded, dag, errs)
+        dag = phase_frame_dag(RA_STREAM, warm=3)
+        sharded = phase_sharded(gold_planes, steps)
+        rows = phase_timing(launches, sharded, dag, errs, kind)
+        phase_measuring(tmp)
     log(f"chip_smoke: total wall time {time.perf_counter() - t_start:.1f} s")
     require("jax" not in sys.modules, "jax was imported")
     ref = sorted(m for m in sys.modules

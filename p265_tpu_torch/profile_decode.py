@@ -1,7 +1,7 @@
 """Where the time of one decode goes, on a CUDA card.
 
     python -m p265_tpu_torch.profile_decode [--stream s1080_ra8.265]
-        [--frame-dag-max 4]
+        [--frame-dag-max 4] [--json stages.json]
 
 The stream is a file of p265_tpu_torch/data (default s1080_ldp4.265).
 After one warm-up pass it prints:
@@ -13,20 +13,30 @@ After one warm-up pass it prints:
 2. for PipelinedTorchDecoder, a torch.profiler window over one whole pass:
    wall time, device time (the sum of kernel and copy time), the device's
    idle share, the number of device operations, and the top kernels.
+
+--json writes the stage table's sums over the dispatches of the stages
+that p265_tpu_torch.roofline counts as a whole, {stage: seconds a pass}
+(mc, scan, deblock, sao), for `python -m p265_tpu_torch.roofline <stream>
+stages.json`.  The residual stage has no column: "intra residual" times
+the scan TUs' K1 call only; the hoisted inter TUs' call is in "rest".
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import json
 import os
 import time
 
 import torch
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+# a column of the stage table -> the roofline stage it times as a whole
+ROOFLINE_STAGES = {"MC": "mc", "scan": "scan", "deblock": "deblock",
+                   "SAO": "sao"}
 
 
-def _stage_table(data: bytes, dag: int) -> None:
+def _stage_table(data: bytes, dag: int) -> dict:
     from p265_tpu_torch.kernels import loopfilter as lf
     from p265_tpu_torch.pipeline import batch_decode as bd
     from p265_tpu_torch.pipeline import decoder as dm
@@ -90,6 +100,8 @@ def _stage_table(data: bytes, dag: int) -> None:
         print(f"{poc} {'P' if inter else 'I'} {n_steps} {total:.4f} "
               + " | ".join(f"{p:.4f}" for p in parts)
               + f" | {total - sum(parts):.4f}")
+    return {st: sum(a.get(label, 0.0) for *_, a in rows)
+            for label, st in ROOFLINE_STAGES.items()}
 
 
 def _profile_window(data: bytes, dag: int) -> None:
@@ -120,6 +132,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stream", default="s1080_ldp4.265")
     ap.add_argument("--frame-dag-max", type=int, default=1)
+    ap.add_argument("--json", help="write {roofline stage: seconds a "
+                    "pass} here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: needs a CUDA device")
@@ -128,7 +142,10 @@ def main(argv=None) -> None:
         data = f.read()
     PipelinedTorchDecoder("cuda").decode_stream(data)   # warm-up
     print(f"{args.stream}, frame_dag_max={args.frame_dag_max}")
-    _stage_table(data, args.frame_dag_max)
+    sums = _stage_table(data, args.frame_dag_max)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(sums, f)
     _profile_window(data, args.frame_dag_max)
 
 

@@ -19,7 +19,7 @@ stream with tiles or WPP it also times the parse alone (the port's native
 CTU parse, no reconstruction) with the host lanes (parse_workers()) and
 with one lane, best of 3 each, in turns.  --profile adds one more pass
 under torch.profiler: each kernel's device time and the device's idle
-share.
+share.  `run()` returns all of it as one record (report() prints it).
 """
 from __future__ import annotations
 
@@ -73,13 +73,14 @@ def golden_frames(data: bytes) -> list:
 
 def save_golden(name: str, path: str) -> tuple:
     """Decode stream `name` with the port's GoldenDecoder into an .npz at
-    `path` (uint8 planes); -> (path, golden seconds).  A worker process's
-    task: it imports no torch."""
+    `path` (uint8 planes and the decode's seconds); -> (path, golden
+    seconds).  A worker process's task: it imports no torch."""
     from p265_tpu_torch.testgen.streams import get_stream
     t0 = time.perf_counter()
     gold = golden_frames(get_stream(name))
     seconds = time.perf_counter() - t0
-    arrays = {"poc": np.array([g.poc for g in gold])}
+    arrays = {"poc": np.array([g.poc for g in gold]),
+              "seconds": np.array(seconds)}
     for i, g in enumerate(gold):
         for c in range(3):
             for key, p in (("q", g.planes[c]), ("p", g.prefilter[c])):
@@ -152,11 +153,9 @@ def mib(nbytes) -> str:
     return "n/a" if nbytes is None else f"{nbytes / 2 ** 20:.1f} MiB"
 
 
-def parse_seconds(data: bytes, lanes: bool, reps: int = 3) -> float:
-    """Best of `reps` parses of the whole stream by the port's native CTU
-    parse with no reconstruction, with the host lanes (tiles or WPP rows
-    on parse_workers() threads, where the stream allows them) or with one
-    lane (P265_TPU_PARSE_WORKERS=1)."""
+def parse_only(on_plan=None):
+    """A GoldenDecoder that runs the native CTU parse and reconstructs
+    nothing; on_plan(plan), where given, sees each picture's FramePlan."""
     from p265_tpu_torch.golden.decoder import GoldenDecoder
 
     class ParseOnly(GoldenDecoder):
@@ -164,9 +163,19 @@ def parse_seconds(data: bytes, lanes: bool, reps: int = 3) -> float:
             super().__init__(use_native_parse=True)
 
         def _run_recon(self, task):
+            if on_plan is not None:
+                on_plan(task["plan"])
             task["frame"].planes = task["frame"].prefilter = [None] * 3
             task["pic"].planes = [np.zeros((2, 2), np.int32)] * 3
 
+    return ParseOnly()
+
+
+def parse_seconds(data: bytes, lanes: bool, reps: int = 3) -> float:
+    """Best of `reps` parses of the whole stream by the port's native CTU
+    parse with no reconstruction, with the host lanes (tiles or WPP rows
+    on parse_workers() threads, where the stream allows them) or with one
+    lane (P265_TPU_PARSE_WORKERS=1)."""
     key = "P265_TPU_PARSE_WORKERS"
     saved = os.environ.get(key)
     if not lanes:
@@ -175,7 +184,7 @@ def parse_seconds(data: bytes, lanes: bool, reps: int = 3) -> float:
         best = float("inf")
         for _ in range(reps):
             t0 = time.perf_counter()
-            ParseOnly().decode_stream(data)
+            parse_only().decode_stream(data)
             best = min(best, time.perf_counter() - t0)
     finally:
         if saved is None:
@@ -185,9 +194,10 @@ def parse_seconds(data: bytes, lanes: bool, reps: int = 3) -> float:
     return best
 
 
-def parse_lanes(name: str, data: bytes, info: dict) -> None:
-    """Log the parse alone with and without the host lanes, in turns (one
-    lane, lanes, lanes, one lane)."""
+def parse_lanes(data: bytes, info: dict) -> dict:
+    """The parse alone with and without the host lanes, in turns (one
+    lane, lanes, lanes, one lane): the best seconds of each, the lanes and
+    the lane path."""
     from p265_tpu_torch.syntax.ctu import parse_workers
     tiles = info["tiles"] != (1, 1)
     path = ("none: tiles and WPP together parse in one lane"
@@ -196,15 +206,19 @@ def parse_lanes(name: str, data: bytes, info: dict) -> None:
     t = {False: [], True: []}
     for lanes in (False, True, True, False):
         t[lanes].append(parse_seconds(data, lanes))
-    one, lanes = min(t[False]), min(t[True])
-    log(f"{name}: parse alone (native CTU parse, best of 3, in turns): one "
-        f"lane {one:.4f} s, {parse_workers()} lanes {lanes:.4f} s "
-        f"({one / lanes:.2f}x); lane path: {path}")
+    return dict(one_lane_s=min(t[False]), lanes_s=min(t[True]),
+                lanes=parse_workers(), path=path)
+
+
+# kernel -> its symbol in the device trace
+KERNEL_SYMBOLS = {"itransform": "itransform_grouped_kernel",
+                  "mc": "mc_grouped_kernel", "scan": "scan_kernel"}
 
 
 def profile_pass(data: bytes, device: str) -> dict:
     """One more pass under torch.profiler: device ms of each kernel of
-    the port and of everything, wall s and the device's idle share."""
+    the port (KERNEL_SYMBOLS) and of everything, wall ms and the device's
+    idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -214,33 +228,61 @@ def profile_pass(data: bytes, device: str) -> dict:
         torch.cuda.synchronize(device)
     ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in ev) / 1e3
-    kernels = {sym: sum(e.self_device_time_total for e in ev
-                        if sym in e.key) / 1e3
-               for sym in ("scan_kernel", "itransform_grouped_kernel",
-                           "mc_grouped_kernel")}
+    kernels = {k: sum(e.self_device_time_total for e in ev
+                      if sym in e.key) / 1e3
+               for k, sym in KERNEL_SYMBOLS.items()}
     wall = p["seconds"] * 1e3
     return dict(wall_ms=wall, device_ms=total, kernels_ms=kernels,
                 idle=1 - total / wall, ops=sum(e.count for e in ev))
 
 
 def run(name: str, n_warm: int = 2, device: str = "cuda",
-        profile: bool = False) -> None:
-    """run_config's work on stream `name`, logged on stderr."""
+        profile: bool = False, gold: tuple | None = None) -> dict:
+    """run_config's work on stream `name`: golden (decoded here, or `gold`:
+    (golden frames, their decode seconds)), one cold and `n_warm` warm
+    passes (decode_pass after gc.collect(), each gated against golden; a
+    difference raises), the parse alone with and without lanes on a
+    stream with tiles or WPP, and where `profile` a pass under
+    torch.profiler.  -> the record: the stream's info, golden_s, per pass
+    its decode_pass record with the frames counted; with warm passes
+    warm_s, fps (best warm pass), spread and median; parse; profile."""
     from p265_tpu_torch.testgen.streams import get_stream, stream_info
     data = get_stream(name)
     info = stream_info(data)
-    log(f"{name}: {len(data)} bytes, {info['width']}x{info['height']}, "
-        f"{info['frames']} frames, tiles {info['tiles'][0]}x"
-        f"{info['tiles'][1]}, WPP {'on' if info['wpp'] else 'off'}; "
-        f"device {device}")
-    t0 = time.perf_counter()
-    gold = golden_frames(data)
-    log(f"golden: {time.perf_counter() - t0:.2f} s for {len(gold)} frames")
-    times, peaks = [], []
+    if gold is None:
+        t0 = time.perf_counter()
+        gold = golden_frames(data), time.perf_counter() - t0
+    frames, golden_s = gold
+    rec = dict(name=name, bytes=len(data), info=info, device=device,
+               frames=len(frames), golden_s=golden_s, passes=[])
     for i in range(1 + n_warm):
         gc.collect()
         p = decode_pass(data, device)
-        gate(p["frames"], gold, f"{name} pass {i}")
+        gate(p["frames"], frames, f"{name} pass {i}")
+        p["frames"] = len(p["frames"])
+        rec["passes"].append(p)
+    if n_warm:
+        warm = [p["seconds"] for p in rec["passes"][1:]]
+        best = min(warm)
+        rec.update(warm_s=warm, fps=len(frames) / best,
+                   spread=(max(warm) - best) / best,
+                   median=statistics.median(warm))
+    if info["tiles"] != (1, 1) or info["wpp"]:
+        rec["parse"] = parse_lanes(data, info)
+    if profile:
+        rec["profile"] = profile_pass(data, device)
+    return rec
+
+
+def report(rec: dict) -> None:
+    """Log a run() record on stderr as text."""
+    name, info, passes = rec["name"], rec["info"], rec["passes"]
+    log(f"{name}: {rec['bytes']} bytes, {info['width']}x{info['height']}, "
+        f"{info['frames']} frames, tiles {info['tiles'][0]}x"
+        f"{info['tiles'][1]}, WPP {'on' if info['wpp'] else 'off'}; "
+        f"device {rec['device']}")
+    log(f"golden: {rec['golden_s']:.2f} s for {rec['frames']} frames")
+    for i, p in enumerate(passes):
         log(f"{'cold' if i == 0 else 'warm'} pass: {p['seconds']:.4f} s, "
             f"bit-exact vs golden (every plane, pre- and post-filter); "
             f"peak {mib(p['peak'])}; launches {p['launches']}; stats: "
@@ -248,21 +290,21 @@ def run(name: str, n_warm: int = 2, device: str = "cuda",
         if i == 0:
             log("  dispatches (pocs: scan steps): " + ", ".join(
                 f"{pocs}: {steps}" for pocs, steps in p["dispatches"]))
-        times.append(p["seconds"])
-        peaks.append(p["peak"])
-        del p
-    if n_warm:
-        warm = times[1:]
-        best = min(warm)
-        log(f"{name}: warm passes {[round(t, 4) for t in warm]} s; "
-            f"{len(gold) / best:.4f} fps (best), spread "
-            f"{(max(warm) - best) / best * 100:.1f}%, median "
-            f"{statistics.median(warm):.4f} s; cold {times[0]:.4f} s; peak "
+    if "fps" in rec:
+        peaks = [p["peak"] for p in passes]
+        log(f"{name}: warm passes {[round(t, 4) for t in rec['warm_s']]} s; "
+            f"{rec['fps']:.4f} fps (best), spread {rec['spread'] * 100:.1f}"
+            f"%, median {rec['median']:.4f} s; cold "
+            f"{passes[0]['seconds']:.4f} s; peak "
             f"{mib(max(peaks) if peaks[0] is not None else None)}")
-    if info["tiles"] != (1, 1) or info["wpp"]:
-        parse_lanes(name, data, info)
-    if profile:
-        pr = profile_pass(data, device)
+    if "parse" in rec:
+        pr = rec["parse"]
+        log(f"{name}: parse alone (native CTU parse, best of 3, in turns): "
+            f"one lane {pr['one_lane_s']:.4f} s, {pr['lanes']} lanes "
+            f"{pr['lanes_s']:.4f} s ({pr['one_lane_s'] / pr['lanes_s']:.2f}"
+            f"x); lane path: {pr['path']}")
+    if "profile" in rec:
+        pr = rec["profile"]
         log(f"{name} under torch.profiler: wall {pr['wall_ms']:.2f} ms, "
             f"device {pr['device_ms']:.4f} ms over {pr['ops']} operations, "
             f"idle share {pr['idle']:.4f}; kernels (device ms) "
@@ -288,7 +330,7 @@ def main(argv=None) -> int:
                            text=True).stdout.strip())
     elif args.profile:
         ap.error("--profile needs a CUDA device")
-    run(args.name, args.n_warm, args.device, args.profile)
+    report(run(args.name, args.n_warm, args.device, args.profile))
     return 0
 
 

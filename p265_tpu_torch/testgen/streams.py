@@ -123,13 +123,16 @@ def _write(path: str, data: bytes) -> None:
 
 
 def get_stream(name: str) -> bytes:
-    """The named stream: committed, cached, or encoded into the cache."""
-    if name not in GENERATORS:
-        raise KeyError(f"unknown stream {name!r}; known: "
-                       f"{', '.join(GENERATORS)}")
+    """The named stream: committed (the GENERATORS' streams and the small
+    streams of data/, e.g. s96x64_ldp5), cached, or encoded into the
+    cache."""
     data = committed(name)
     if data is not None:
         return data
+    if name not in GENERATORS:
+        raise KeyError(f"unknown stream {name!r}; known: "
+                       f"{', '.join(GENERATORS)} and the committed "
+                       f"{', '.join(sorted(committed_sums()))}")
     path = os.path.join(cache_dir(), name + ".265")
     if os.path.exists(path):
         with open(path, "rb") as f:

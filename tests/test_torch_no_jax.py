@@ -1,12 +1,15 @@
 """The port must run where JAX is not installed, on its own.
 
 A fresh interpreter imports every p265_tpu_torch module (the sharded
-paths of p265_tpu_torch.shard, the test encoder, the stream set, run_config
-and the CLI among them), loads the per-stage entry points and decodes the
+paths of p265_tpu_torch.shard, the test encoder, the stream set, run_config,
+the CLI and the measuring modules roofline, bench, bench_kernels and
+graft_entry among them), loads the per-stage entry points and decodes the
 committed 96x64 LDP stream on CPU tensors (fused, unfused and with
 frame-DAG batching) against the port's own golden decoder, through
 run_config's gate too, and reads a committed stream of the stream set; a
-second one runs every CLI subcommand; jax, jaxlib and ml_dtypes (on the
+second one runs every CLI subcommand; a third runs the measuring modules
+(the roofline's census, the bench's one line, the kernel rates, the graft
+entry's forward) on CPU tensors; jax, jaxlib and ml_dtypes (on the
 GPU machine any of them would be an import crash) and every module of the
 JAX package p265_tpu must stay out of sys.modules.  Also: no source line of
 the package or of chip_smoke.py imports them, and chip_smoke.py exits
@@ -37,7 +40,8 @@ shard = {"p265_tpu_torch.shard." + m for m in ("mesh", "filters", "spatial",
 assert shard <= set(mods), sorted(shard - set(mods))
 new = {"p265_tpu_torch." + m for m in ("testgen.encoder", "golden.trace",
                                        "cli", "testgen.streams",
-                                       "run_config")}
+                                       "run_config", "roofline", "bench",
+                                       "bench_kernels", "graft_entry")}
 assert new <= set(mods), sorted(new - set(mods))
 from p265_tpu_torch.kernels.intra import predict_batch
 from p265_tpu_torch.kernels.loopfilter import (deblock, loop_filters,
@@ -97,6 +101,30 @@ ref = sorted(m for m in sys.modules
 print("REF", ",".join(ref) or "none", "JAX", ",".join(bad) or "none")
 """
 
+# the measuring modules: the roofline's census and work, the bench (its
+# one stdout line), the kernel rates and the graft entry's forward
+_MEASURE_CHILD = r"""
+import contextlib, io, json, sys
+from p265_tpu_torch import bench, bench_kernels, graft_entry, roofline
+from p265_tpu_torch.testgen.streams import get_stream
+pics = roofline.census(get_stream("s96x64_ldp5"))
+w = roofline.work(pics)
+assert len(pics) == 5 and w["kernels"]["mc"].ops > 0
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    assert bench.main(["--device", "cpu", "--stream", "s96x64_ldp5",
+                       "--warm", "1"]) == 0
+line = json.loads(buf.getvalue())
+assert line["value"] > 0, line
+assert len(bench_kernels.run("cpu", n_tu=16, n_blocks=16, reps=1)) == 5
+fwd, args = graft_entry.entry("cpu")
+assert fwd(*args).shape == (96, 64)
+bad = sorted(m for m in ("jax", "jaxlib", "ml_dtypes") if m in sys.modules)
+ref = sorted(m for m in sys.modules
+             if m == "p265_tpu" or m.startswith("p265_tpu."))
+print("REF", ",".join(ref) or "none", "JAX", ",".join(bad) or "none")
+"""
+
 
 def _py_sources():
     for dirpath, _, files in os.walk(PKG):
@@ -119,6 +147,13 @@ def test_port_imports_and_decodes_without_jax():
 
 def test_cli_subcommands_run_without_jax():
     r = subprocess.run([sys.executable, "-c", _CLI_CHILD], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "REF none JAX none"
+
+
+def test_measuring_modules_run_without_jax():
+    r = subprocess.run([sys.executable, "-c", _MEASURE_CHILD], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().splitlines()[-1] == "REF none JAX none"
