@@ -15,7 +15,11 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    scan kernel against scan_packed_ref on random scans (every mode and
    size, every flag, unavailable references outside the plane, empty
    steps, flat and non-flat 32x32 edges; steps wider than the kernel's
-   warps; one TU a step), and a split run against one.
+   warps; one TU a step), and a split run against one; the deblocking
+   kernels (luma and chroma) and the SAO kernel against their plain
+   versions on random filter cases (testgen/filter_cases.py) at 1080p
+   widths, on contiguous planes, transposed views and row views of a
+   taller plane, and the row-sharded SAO's halo blocks.
 4. small streams: the committed 96x64 LDP, RA (bi-pred) and PCM LDP
    streams (PCM CUs in the I picture and in every P picture, whose MC runs
    through K2), PipelinedTorchDecoder on cuda vs the port's GoldenDecoder,
@@ -35,8 +39,8 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
 9. s1080_ldp4 (1920x1080, IDR + 3 P, QP 32; p265_tpu_torch/data; golden
    decoded in the first worker process of phase 10's): one
    cold pass bit-exact against GoldenDecoder on every plane, with the
-   kernel launch counters reset just before it (3 MC, 7 residual and 4
-   scan launches a pass); then 3 warm passes.
+   kernel launch counters reset just before it (3 MC, 7 residual, 4
+   scan, 16 deblocking and 8 SAO launches a pass); then 3 warm passes.
 10. streams: every stream of p265_tpu_torch/testgen/streams.py that no
    other phase decodes (STREAMS: 416x240 and 832x480 LDP, 1080p intra,
    1080p with 4x2 tiles, with tiles and WPP, 3840x2160 intra, 16 frames of
@@ -50,7 +54,8 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    passes each, in turns; every pass bit-exact against golden on every
    plane before and after the filters; dag_batched, the K1/K2 launches a
    pass, the scan steps of every dispatch (one scan launch each: 8 at 1,
-   5 at 4), and fps with spread for both.
+   5 at 4), four deblocking and two SAO launches a dispatch, and fps with
+   spread for both.
 12. sharded: one process a rank (NCCL with one rank a card where there are
    two cards or more, else two ranks sharing cuda:0 over gloo).  The space
    axis decodes every picture of s1080_ldp4 row-sharded over the ranks
@@ -63,9 +68,12 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    space axis launches the scan once a wavefront step, the stream axis
    once a picture.
 13. per-kernel time against the plain version and the bound, over every
-   call the main path made on one pass of s1080_ldp4: the CUDA-event
+   call the main path made on one pass of s1080_ldp4 (each call of the
+   five kernels torch.equal to its plain version): the CUDA-event
    window of the calls (`ms`, host launch gaps included) and the kernel's
-   own device time from torch.profiler (`device_ms`).  Each kernel's bound
+   own device time from torch.profiler (`device_ms`); beside them the plain
+   version's window (`plain_ms`) and, but for the scan, its device time
+   (`plain_device_ms`: every device operation it runs).  Each kernel's bound
    is the function's, from p265_tpu_torch.roofline over the census of
    s1080_ldp4 (not from the tensors the calls carry; the census's TUs of
    each size and MC blocks of each geometry must equal the calls'), and
@@ -75,7 +83,9 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    (one run per turn), the device time, and the barrier floor
    (`floor_ms`: the same launches computing no TU); the TUs a step (max,
    median), the launch shape (one cluster: CTAs, warps), and per step with
-   TUs the floor and the chain (device - floor).
+   TUs the floor and the chain (device - floor).  The deblocking row
+   counts the luma and the chroma kernel of both directions (the
+   horizontal pass on transposed views), the SAO row luma and chroma.
 14. measuring modules: `python -m p265_tpu_torch.bench --golden DIR` as a
    subprocess (s1080_ldp4 gated against golden, its s1080_ldp16
    steady-state row gated too, both goldens read from the workers' files;
@@ -89,12 +99,15 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    graft_entry.entry() on the card torch.equal to its forward on CPU
    tensors (one K1 launch), and graft_entry.dryrun_multichip(2) on the
    card (NCCL with two cards, else two gloo ranks sharing cuda:0), every
-   rank's K1, K2 and scan launches above 0; its wall time.
+   rank's launches of all five kernels above 0; its wall time.
 
 Every path from phase 4 on is driven with the kernels' launch counts set
 to 0 just before it and read just after; all must be above 0 (launches
 made to compare a kernel with its plain version are outside those windows),
-but for the intra streams of phase 10, which have no MC to launch.  The
+but for the intra streams of phase 10, which have no MC to launch, and
+the filter kernels, which launch exactly where the path filters on the
+card (every stream here turns both filters on; apply_filters=False and
+filters_on_device=False launch neither).  The
 total wall time is printed before the kernels' record.
 Nothing of JAX and nothing of the JAX package p265_tpu may be imported.
 The line before the last is the kernels' JSON record; the last line is
@@ -119,18 +132,19 @@ N_FRAMES = 4
 RA_STREAM = "s1080_ra8.265"
 SMALL = (("LDP", "s96x64_ldp5.265"), ("RA", "s96x64_ra5.265"),
          ("PCM LDP", "s96x64_pcm_ldp5.265"))
-# phase 10: stream -> kernel launches a pass (itransform, mc, scan), as
-# measured on an H100: K1 and the scan on every stream, K2 on the P
-# streams only.  The card takes them in this order, the golden workers in
-# the reverse one
+# phase 10: stream -> kernel launches a pass (itransform, mc, scan,
+# deblock, sao), as measured on an H100: K1, the scan and the filters
+# (four deblocking and two SAO launches a dispatch) on every stream, K2 on
+# the P streams only.  The card takes them in this order, the golden
+# workers in the reverse one
 STREAMS = {
-    "s416_ldp4": (7, 3, 4),
-    "s832_ldp4": (7, 3, 4),
-    "s1080": (1, 0, 1),
-    "s1080_t8": (1, 0, 1),
-    "s1080_t8w": (1, 0, 1),
-    "s4k": (1, 0, 1),
-    "s1080_ldp16": (31, 15, 16),
+    "s416_ldp4": (7, 3, 4, 16, 8),
+    "s832_ldp4": (7, 3, 4, 16, 8),
+    "s1080": (1, 0, 1, 4, 2),
+    "s1080_t8": (1, 0, 1, 4, 2),
+    "s1080_t8w": (1, 0, 1, 4, 2),
+    "s4k": (1, 0, 1, 4, 2),
+    "s1080_ldp16": (31, 15, 16, 64, 32),
 }
 GOLDEN_WORKERS = 3
 KERNELS = {  # name -> (source, the TPU kernel it replaces, launches a pass)
@@ -141,7 +155,14 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, launches a pass)
     "scan": ("p265_tpu_torch/csrc/scan.cu",
              "p265_tpu/pipeline/wavefront.py:455 (lax.scan, XLA; not a "
              "Pallas kernel)", 4),
+    "deblock": ("p265_tpu_torch/csrc/loopfilter.cu",
+                "p265_tpu/kernels/loopfilter.py:146 and :231 (jax.jit, "
+                "XLA; not Pallas kernels)", 16),
+    "sao": ("p265_tpu_torch/csrc/loopfilter.cu",
+            "p265_tpu/kernels/loopfilter.py:296 (jax.jit, XLA; not a "
+            "Pallas kernel)", 8),
 }
+FILTERS = ("deblock", "sao")
 
 
 def log(*a) -> None:
@@ -312,6 +333,64 @@ def phase_compare(errs: dict) -> None:
         "items (40 32x32 TUs of 8 items each), each step reading what "
         "earlier steps wrote; a split run [0, k) + [k, n) equal to one run "
         "in each")
+    _filter_sweeps(rng, dev, errs)
+
+
+def _filter_sweeps(rng, dev, errs: dict) -> None:
+    """The deblocking and SAO kernels against their plain versions on
+    random cases at 1080p widths, in three layouts, and the row-sharded
+    SAO's blocks with their halo rows."""
+    import torch
+    from p265_tpu_torch.kernels import loopfilter as lf
+    from p265_tpu_torch.shard.filters import sao_rows
+    from p265_tpu_torch.testgen import filter_cases as fc
+    for chroma, shape in ((False, (2, 1080, 1920)), (False, (2, 1920, 1080)),
+                          (True, (4, 540, 960)), (True, (4, 960, 540))):
+        c = fc.deblock_case(rng, *shape, chroma=chroma)
+        if chroma:
+            fn, ref, keys = (lf.deblock_chroma_vertical,
+                             lf.deblock_chroma_vertical_ref, ("tc",))
+        else:
+            fn, ref, keys = (lf.deblock_luma_vertical,
+                             lf.deblock_luma_vertical_ref,
+                             ("bs", "beta", "tc"))
+        args = [torch.from_numpy(c[k]).to(dev) for k in keys]
+        for name, planes in fc.layouts(c["planes"], dev).items():
+            got, want = fn(planes, *args), ref(planes, *args)
+            torch.cuda.synchronize()
+            require(not torch.equal(want, planes), "deblock sweep: the "
+                    "plain version filtered nothing")
+            errs["deblock"] = max(errs["deblock"], _max_err(
+                [got], [want], f"deblock chroma={chroma} {shape} {name}"))
+    for ctb in (64, 32, 16):
+        for shape, size in (((2, 1080, 1920), ctb), ((4, 540, 960),
+                                                     ctb >> 1)):
+            c = fc.sao_case(rng, *shape, size)
+            maps = [torch.from_numpy(c[k]).to(dev)
+                    for k in ("ty", "cls", "offs")]
+            for name, src in fc.layouts(c["src"], dev).items():
+                got = lf.sao_apply(src, *maps, size)
+                want = lf.sao_apply_ref(src, *maps, size)
+                torch.cuda.synchronize()
+                errs["sao"] = max(errs["sao"], _max_err(
+                    [got], [want], f"sao ctb {size} {shape} {name}"))
+    c = fc.sao_case(rng, 1, 1080, 1920, 64)
+    maps = [torch.from_numpy(c[k][0]).to(dev) for k in ("ty", "cls", "offs")]
+    # 4 blocks of 272 rows, the last 8 past the picture
+    for r0, *blk in fc.row_blocks(torch.from_numpy(c["src"][0]).to(dev), 4,
+                                  272):
+        got = sao_rows(*blk, *maps, 64, r0, 1080)
+        want = sao_rows(*(t.cpu() for t in blk), *(m.cpu() for m in maps),
+                        64, r0, 1080)
+        errs["sao"] = max(errs["sao"], _max_err(
+            [got.cpu()], [want], f"sao rows from {r0}"))
+    log("deblock == plain: luma [2,1080,1920] and [2,1920,1080], chroma "
+        "[4,540,960] and [4,960,540], each contiguous, as a transposed "
+        "view and as rows of a taller plane; bS 0..2, beta 0..64, tc "
+        "0..24, strong, normal and no filter.  sao == plain: CTB 64/32/16 "
+        "(chroma 32/16/8) at 1080p in the same three layouts, every type "
+        "and edge class, band positions 0..31; the row-sharded SAO's 4 "
+        "blocks of 272 rows with halo rows (the last past the picture)")
 
 
 def _stream_bytes(fn: str) -> bytes:
@@ -348,6 +427,7 @@ def phase_small_streams() -> None:
         _bit_exact(frames, gold, f"96x64 {structure}")
         require(all(launches[k] > 0 for k in KERNELS),
                 f"96x64 {structure}: a kernel never launched: {launches}")
+        _filter_launches(launches, len(gold), f"96x64 {structure}")
         if structure == "RA":
             require(any(p.motion.uses(0) and p.motion.uses(1)
                         for g in gold for p in g.plan.pus),
@@ -363,16 +443,31 @@ def phase_small_streams() -> None:
             f"launches {launches}")
 
 
-def _counted(what: str, fn):
+def _filter_launches(launches: dict, dispatches: int, what: str) -> None:
+    """Four deblocking launches (luma and chroma, each direction) and two
+    SAO launches (luma, chroma) a dispatch: every stream here turns both
+    filters on in every slice."""
+    require(launches["deblock"] == 4 * dispatches
+            and launches["sao"] == 2 * dispatches,
+            f"{what}: launches {launches}, expected 4 deblocking and 2 SAO "
+            f"launches for each of {dispatches} dispatches")
+
+
+def _counted(what: str, fn, filters: bool = True):
     """Run fn() with the kernels' launch counts set to 0 just before and
-    read just after; every kernel must have launched.  -> (result,
-    launches)."""
+    read just after; every kernel must have launched, but the filter
+    kernels where the path does not filter on the card (filters False),
+    which must not have.  -> (result, launches)."""
     from p265_tpu_torch.kernels import _build
     _build.reset_launch_counts()
     out = fn()
     launches = dict(_build.LAUNCHES)
-    require(all(launches[k] > 0 for k in KERNELS),
+    require(all(launches[k] > 0 for k in KERNELS
+                if filters or k not in FILTERS),
             f"{what}: a kernel never launched: {launches}")
+    require(filters or not any(launches[k] for k in FILTERS),
+            f"{what}: a filter kernel launched on a path that does not "
+            f"filter on the card: {launches}")
     return out, launches
 
 
@@ -438,6 +533,8 @@ def phase_frame_dag(fn: str, warm: int) -> dict:
         require(p["launches"]["scan"] == scans,
                 f"{what}: {p['launches']['scan']} scan launches for {scans} "
                 "dispatches with scan steps")
+        _filter_launches(p["launches"], len(p["dispatches"]),
+                         f"{what} frame_dag_max={dag}")
         cold = i < 2
         log(f"frame_dag_max={dag} {'cold' if cold else 'warm'} pass: "
             f"{p['seconds']:.3f} s ({p['stats']}), launches "
@@ -494,7 +591,8 @@ def phase_unfused() -> None:
             require(dec.fused == (kw == dict(use_native_parse=False)),
                     f"{kw}: fused is {dec.fused}")
             frames, launches = _counted(
-                f"96x64 {structure} {kw}", lambda: dec.decode_stream(data))
+                f"96x64 {structure} {kw}", lambda: dec.decode_stream(data),
+                filters=dec.apply_filters and dec.filters_on_device)
             _bit_exact(frames,
                        gold if kw.get("apply_filters", True) else unfiltered,
                        f"96x64 {structure} TorchDecoder {kw}")
@@ -700,7 +798,7 @@ def phase_streams(jobs: dict) -> None:
     bit-exact against golden, launches counted in each."""
     from p265_tpu_torch.run_config import decode_pass, load_golden, mib, split
     from p265_tpu_torch.testgen.streams import get_stream, stream_info
-    names = ("itransform", "mc", "scan")
+    names = tuple(KERNELS)
     for name, want in STREAMS.items():
         t0 = time.perf_counter()
         path, golden_s = jobs[name].get(timeout=900)
@@ -785,32 +883,56 @@ def phase_sharded(gold_planes: dict, steps: list) -> dict:
     return out
 
 
+def _keep(t):
+    """A copy of a tensor argument with its strides (a transposed view
+    stays a transposed view, rows of a tall plane stay rows)."""
+    import torch
+    if not isinstance(t, torch.Tensor):
+        return t
+    return torch.empty_strided(t.size(), t.stride(), dtype=t.dtype,
+                               device=t.device).copy_(t)
+
+
+# the main path's filter functions (kernels/loopfilter.py): kernel name
+# of each, the wrapper's name (its plain version is name + "_ref")
+FILTER_FUNCTIONS = {"deblock_luma_vertical": "deblock",
+                    "deblock_chroma_vertical": "deblock",
+                    "sao_apply": "sao"}
+
+
 def _capture_main_path(data: bytes) -> dict:
-    """Record the arguments of every grouped kernel call and every scan of
-    one pass; a scan's plane is recorded as it stood before the scan."""
+    """Record the arguments of every grouped kernel call, every scan and
+    every filter call of one pass; a scan's plane is recorded as it stood
+    before the scan, a filter's planes with their strides.  A filter
+    call is recorded as ((function name, *arguments), keywords)."""
     from p265_tpu_torch.kernels import itransform, mc
+    from p265_tpu_torch.kernels import loopfilter as lf
     from p265_tpu_torch.pipeline import wavefront as wf
     from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
-    calls = {"itransform": [], "mc": [], "scan": []}
-    orig = {"itransform": itransform.batch_residual_grouped,
-            "mc": mc.mc_blocks_grouped, "scan": wf.scan_plane}
+    calls = {k: [] for k in KERNELS}
+    patched = [(itransform, "batch_residual_grouped", "itransform"),
+               (mc, "mc_blocks_grouped", "mc"), (wf, "scan_plane", "scan"),
+               *((lf, fn, k) for fn, k in FILTER_FUNCTIONS.items())]
+    orig = [(m, fn, getattr(m, fn)) for m, fn, _ in patched]
 
-    def spy(name):
+    def spy(fn, name, f0):
         def f(*a, **k):
-            calls[name].append(
-                (a if name != "scan" else (*a[:3], a[3].clone()), k))
-            return orig[name](*a, **k)
+            if name == "scan":
+                calls[name].append(((*a[:3], a[3].clone()), k))
+            elif name in FILTERS:
+                calls[name].append(((fn, *map(_keep, a)), k))
+            else:
+                calls[name].append((a, k))
+            return f0(*a, **k)
         return f
 
-    itransform.batch_residual_grouped = spy("itransform")
-    mc.mc_blocks_grouped = spy("mc")
-    wf.scan_plane = spy("scan")
+    for (m, fn, name), (_, _, f0) in zip(patched, orig):
+        setattr(m, fn, spy(fn, name, f0))
     try:
         PipelinedTorchDecoder("cuda").decode_stream(data)
     finally:
-        itransform.batch_residual_grouped = orig["itransform"]
-        mc.mc_blocks_grouped = orig["mc"]
-        wf.scan_plane = orig["scan"]
+        for m, fn, f0 in orig:
+            setattr(m, fn, f0)
     return calls
 
 
@@ -834,10 +956,10 @@ def _time_calls(fn, calls, reps: int = 10, warm: int = 2) -> float:
     return statistics.median(out)
 
 
-def _device_ms(fn, calls, symbol: str, reps: int = 10):
-    """Device time (ms) of the kernel `symbol` over one run of every call,
-    from torch.profiler, averaged over reps runs; None if the profiler saw
-    no device time for it."""
+def _device_ms(fn, calls, symbol, reps: int = 10):
+    """Device time (ms) of the kernel `symbol` (None: of every device
+    operation) over one run of every call, from torch.profiler, averaged
+    over reps runs; None if the profiler saw no device time for it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -848,7 +970,8 @@ def _device_ms(fn, calls, symbol: str, reps: int = 10):
                 fn(*a, **k)
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and symbol in e.key)
+             if e.device_type == DeviceType.CUDA
+             and (symbol is None or symbol in e.key))
     return us / 1e3 / reps if us else None
 
 
@@ -973,6 +1096,7 @@ def phase_timing(launches: dict, sharded: dict, dag: dict, errs: dict,
     import torch
     from p265_tpu_torch import roofline
     from p265_tpu_torch.kernels import itransform, mc
+    from p265_tpu_torch.kernels import loopfilter as lf
     with open(STREAM, "rb") as f:
         data = f.read()
     calls = _capture_main_path(data)
@@ -985,19 +1109,31 @@ def phase_timing(launches: dict, sharded: dict, dag: dict, errs: dict,
         "bounds of one pass: " + ", ".join(
             f"{k} {roofline.bound(v, card)[0]:.6f} ms"
             for k, v in w["kernels"].items()))
+    def filter_kernel(fn, *a):
+        return getattr(lf, fn)(*a)
+
+    def filter_plain(fn, *a):
+        return getattr(lf, fn + "_ref")(*a)
+
     pairs = {"itransform": (itransform.batch_residual_grouped,
                             itransform.batch_residual_grouped_ref,
                             "itransform_grouped_kernel"),
              "mc": (mc.mc_blocks_grouped, mc.mc_blocks_grouped_ref,
-                    "mc_grouped_kernel")}
+                    "mc_grouped_kernel"),
+             "deblock": (filter_kernel, filter_plain, "deblock_kernel"),
+             "sao": (filter_kernel, filter_plain, "sao_kernel")}
     rows = []
     for name, (kern, plain, symbol) in pairs.items():
-        cl = [(a, k) for a, k in calls[name] if _launched(name, a[0])]
+        cl = [(a, k) for a, k in calls[name]
+              if name in FILTERS or _launched(name, a[0])]
         require(len(cl) == KERNELS[name][2], f"{len(cl)} {name} launches "
                 f"in one pass, expected {KERNELS[name][2]}")
         for a, k in cl:
+            got, want = kern(*a, **k), plain(*a, **k)
+            if name in FILTERS:
+                got, want = [got], [want]
             errs[name] = max(errs[name], _max_err(
-                kern(*a, **k), plain(*a, **k), f"{name} main-path call"))
+                got, want, f"{name} main-path call"))
         # turns: plain, kernel, kernel, plain
         p1 = _time_calls(plain, cl)
         k1 = _time_calls(kern, cl)
@@ -1005,10 +1141,12 @@ def phase_timing(launches: dict, sharded: dict, dag: dict, errs: dict,
         p2 = _time_calls(plain, cl)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
         dev_ms = _device_ms(kern, cl, symbol)
+        plain_dev = _device_ms(plain, cl, None, reps=3)
         b = _bound(name, w, card, dev_ms or ms)
-        log(f"{name}: {len(cl)} grouped calls per s1080_ldp4 pass; kernel "
+        log(f"{name}: {len(cl)} calls per s1080_ldp4 pass; kernel "
             f"{k1:.4f}/{k2:.4f} ms (device time {dev_ms} ms), plain "
-            f"{p1:.4f}/{p2:.4f} ms; census {b['bytes']} bytes, {b['ops']} "
+            f"{p1:.4f}/{p2:.4f} ms (device time {plain_dev} ms); census "
+            f"{b['bytes']} bytes, {b['ops']} "
             f"{b['ops_type']} multiply-adds; bound {b['bound_ms']:.6f} ms by "
             f"{b['bound_by']}, share {b['bound_share']:.6f}")
         src, rep, _ = KERNELS[name]
@@ -1021,7 +1159,8 @@ def phase_timing(launches: dict, sharded: dict, dag: dict, errs: dict,
                              str(k): v["launches"][name]
                              for k, v in dag.items()},
                          max_abs_err=errs[name], ms=ms, device_ms=dev_ms,
-                         plain_ms=plain_ms, **b, library_ms=None))
+                         plain_ms=plain_ms, plain_device_ms=plain_dev, **b,
+                         library_ms=None))
     rows.append(_scan_row(calls["scan"], launches, sharded, dag, errs, w,
                           card))
     torch.cuda.synchronize()

@@ -47,9 +47,13 @@ _SIGNATURES = {
     # host bucket table, n_buckets, device starts, stride, k0, k1, plane,
     # pw, barrier_only, host angle table, stream
     "p265_scan": [_P, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P],
+    # host parameter row, chroma, stream
+    "p265_deblock": [_P, _I, _P],
+    # host parameter row, stream
+    "p265_sao": [_P, _P],
 }
 
-LAUNCHES = {"itransform": 0, "mc": 0, "scan": 0}
+LAUNCHES = {"itransform": 0, "mc": 0, "scan": 0, "deblock": 0, "sao": 0}
 
 _lock = threading.Lock()
 _libs: dict = {}         # defines -> the loaded library

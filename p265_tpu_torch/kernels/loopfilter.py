@@ -3,9 +3,13 @@
 Counterpart of p265_tpu/kernels/loopfilter.py.  The host builds per-edge
 parameter grids (bS, beta, tc) and per-CTB SAO grids in NumPy (copies of
 the JAX module's host half: the port imports nothing of the JAX package);
-the device filters whole batches of planes with branch-free int32 torch.
-The horizontal deblocking pass is the vertical filter on the transposed
-planes.  The JAX package ran these as XLA, so they are plain torch.
+the device filters whole batches of planes.  The horizontal deblocking
+pass is the vertical filter on the transposed planes.  The JAX package ran
+the three device functions as XLA; here `deblock_luma_vertical`,
+`deblock_chroma_vertical` and `sao_apply` launch the hand-written kernels
+of csrc/loopfilter.cu on CUDA tensors (one launch a call over all the
+planes of the batch) and take their plain versions (`*_ref`,
+branch-free int32 torch) on CPU tensors.
 
 One assembly of the chain serves every caller: `pack_filter_params` (host)
 and `filter_planes` (device: deblocking, SAO, then the restore of the
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 
 from p265_tpu_torch.golden.decoder import bypass_pixel_masks
-from p265_tpu_torch.kernels import upload
+from p265_tpu_torch.kernels import _build, upload
 from p265_tpu_torch.syntax.ctu import SAO_BAND, SAO_EDGE
 from p265_tpu_torch.tables import BETA_TABLE, TC_TABLE, chroma_qp_from_luma
 
@@ -166,9 +170,8 @@ def _edge_cols(n_e: int, device) -> torch.Tensor:
     return 8 * (torch.arange(n_e, device=device) + 1)
 
 
-def deblock_luma_vertical(planes, bs, beta, tc):
-    """planes [B,H,W] int32; bs/beta/tc [B, H//4, n_e]; edges at x = 8(k+1).
-    Returns new planes; the inputs are not modified."""
+def deblock_luma_vertical_ref(planes, bs, beta, tc):
+    """Plain version of deblock_luma_vertical: branch-free int32 torch."""
     B, H, W = planes.shape
     n_e = bs.shape[2]
     cols = _edge_cols(n_e, planes.device)
@@ -250,8 +253,8 @@ def deblock_luma_vertical(planes, bs, beta, tc):
     return out
 
 
-def deblock_chroma_vertical(planes, tc):
-    """planes [B,Hc,Wc] int32; tc [B, Hc//4, n_e]; edges at x = 8(k+1)."""
+def deblock_chroma_vertical_ref(planes, tc):
+    """Plain version of deblock_chroma_vertical."""
     n_e = tc.shape[2]
     cols = _edge_cols(n_e, planes.device)
     p1 = planes[:, :, cols - 2]
@@ -275,8 +278,8 @@ def deblock_chroma_vertical(planes, tc):
 _EO = ((0, -1, 0, 1), (-1, 0, 1, 0), (-1, -1, 1, 1), (-1, 1, 1, -1))
 
 
-def sao_apply(src, ty_g, cls_g, offs_g, ctb: int):
-    """src [B,H,W] int32; ty_g/cls_g [B,ny,nx]; offs_g [B,4,ny,nx]."""
+def sao_apply_ref(src, ty_g, cls_g, offs_g, ctb: int):
+    """Plain version of sao_apply."""
     B, H, W = src.shape
     dev = src.device
 
@@ -314,6 +317,132 @@ def sao_apply(src, ty_g, cls_g, offs_g, ctb: int):
     delta = torch.where(ty == SAO_BAND, d_band,
                         torch.where(ty == SAO_EDGE, d_edge, zero))
     return (v + delta).clamp(0, 255)
+
+
+# ---------------------------------------------------------------------------
+# the kernels (csrc/loopfilter.cu): a CPU tensor takes the plain version,
+# a CUDA tensor launches the kernel, any other device raises
+# ---------------------------------------------------------------------------
+
+
+def on_cuda(t, name: str) -> bool:
+    """False for a CPU tensor (the plain version), True for a CUDA one."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for {t.device}")
+    return t.device.type == "cuda"
+
+
+def _int32(t, what: str, shape, device) -> torch.Tensor:
+    if (t.dtype != torch.int32 or tuple(t.shape) != tuple(shape)
+            or t.device != device):
+        raise ValueError(f"{what} must be int32 {tuple(shape)} on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.contiguous()
+
+
+def _deblock_kernel(planes, params: list, chroma: bool):
+    """One launch of csrc/loopfilter.cu's deblocking over the B planes;
+    planes may be any strided view (the transposed planes of the
+    horizontal pass are read and written in their storage order, with no
+    copy); the output has the input's strides where the input is dense."""
+    name = ("deblock_chroma_vertical" if chroma
+            else "deblock_luma_vertical")
+    dev = planes.device
+    if planes.dim() != 3 or planes.dtype != torch.int32:
+        raise ValueError(f"{name}: planes must be int32 [B,H,W], got "
+                         f"{planes.dtype} {tuple(planes.shape)}")
+    B, H, W = planes.shape
+    n_e = params[-1].shape[-1]
+    if H % 4 or 8 * n_e + (2 if chroma else 4) > W:
+        raise ValueError(f"{name}: {n_e} edges do not fit planes of "
+                         f"{H}x{W}")
+    params = [_int32(t, f"{name}: edge parameters", (B, H // 4, n_e), dev)
+              for t in params]
+    out = torch.empty_like(planes)
+    if out.numel():
+        ptrs = [t.data_ptr() for t in params]
+        if chroma:
+            ptrs = [0, 0, *ptrs]            # no bs, no beta
+        q = np.array([planes.data_ptr(), out.data_ptr(), *ptrs, B, H, W,
+                      n_e, *planes.stride(), *out.stride(),
+                      planes.stride(1) < planes.stride(2)],
+                     np.int64)
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            err = lib.p265_deblock(q.ctypes.data, int(chroma),
+                                   torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "deblock")
+        _build.LAUNCHES["deblock"] += 1
+    return out
+
+
+def deblock_luma_vertical(planes, bs, beta, tc):
+    """planes [B,H,W] int32 (any strides); bs/beta/tc [B, H//4, n_e] int32;
+    edges at x = 8(k+1).  Returns new planes; the inputs are not modified.
+    A CPU tensor takes deblock_luma_vertical_ref; a CUDA tensor launches
+    csrc/loopfilter.cu once for all B planes."""
+    if not on_cuda(planes, "deblock_luma_vertical"):
+        return deblock_luma_vertical_ref(planes, bs, beta, tc)
+    return _deblock_kernel(planes, [bs, beta, tc], chroma=False)
+
+
+def deblock_chroma_vertical(planes, tc):
+    """planes [B,Hc,Wc] int32 (any strides); tc [B, Hc//4, n_e] int32;
+    edges at x = 8(k+1).  CPU: deblock_chroma_vertical_ref; CUDA: one
+    launch of csrc/loopfilter.cu."""
+    if not on_cuda(planes, "deblock_chroma_vertical"):
+        return deblock_chroma_vertical_ref(planes, tc)
+    return _deblock_kernel(planes, [tc], chroma=True)
+
+
+def sao_kernel(src, ty_g, cls_g, offs_g, ctb: int, row0: int = 0,
+               total_h: int | None = None, halo: int = 0):
+    """One launch of csrc/loopfilter.cu's SAO on CUDA tensors: src
+    [B, H + 2 halo, W] int32 (any strides; `halo` rows above and below the
+    rows to filter), ty_g/cls_g [B,ny,nx] and offs_g [B,4,ny,nx] int32 ->
+    the filtered rows [B,H,W] int32.  row0 is the picture row of the first
+    filtered row and total_h the picture's height (default H): neighbours
+    outside the picture's rows are no neighbours, and rows past the CTB map
+    take its last CTB row."""
+    if (src.device.type != "cuda" or src.dim() != 3
+            or src.dtype != torch.int32):
+        raise ValueError(f"sao: the kernel takes an int32 [B,H,W] CUDA "
+                         f"tensor, got {src.dtype} {tuple(src.shape)} on "
+                         f"{src.device}")
+    dev = src.device
+    B, Hs, W = src.shape
+    H = Hs - 2 * halo
+    total_h = H if total_h is None else total_h
+    ny, nx = ty_g.shape[1:]
+    if H < 0 or halo < 0 or row0 < 0 or ny * ctb < total_h or nx * ctb < W:
+        raise ValueError(f"sao: a {ny}x{nx} map of {ctb}-sample CTBs does "
+                         f"not cover {total_h}x{W} (rows {row0}.., halo "
+                         f"{halo})")
+    maps = [_int32(t, f"sao: {n}", shape, dev) for t, n, shape in (
+        (ty_g, "types", (B, ny, nx)), (cls_g, "classes", (B, ny, nx)),
+        (offs_g, "offsets", (B, 4, ny, nx)))]
+    out = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+    if out.numel():
+        q = np.array([src.data_ptr(), out.data_ptr(),
+                      *(t.data_ptr() for t in maps), B, H, W, *src.stride(),
+                      halo, row0, total_h, ny, nx, ctb, SAO_BAND, SAO_EDGE],
+                     np.int64)
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            err = lib.p265_sao(q.ctypes.data,
+                               torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "sao")
+        _build.LAUNCHES["sao"] += 1
+    return out
+
+
+def sao_apply(src, ty_g, cls_g, offs_g, ctb: int):
+    """src [B,H,W] int32 (any strides); ty_g/cls_g [B,ny,nx]; offs_g
+    [B,4,ny,nx].  CPU: sao_apply_ref; CUDA: one launch of
+    csrc/loopfilter.cu (sao_kernel)."""
+    if not on_cuda(src, "sao_apply"):
+        return sao_apply_ref(src, ty_g, cls_g, offs_g, ctb)
+    return sao_kernel(src, ty_g, cls_g, offs_g, ctb)
 
 
 # ---------------------------------------------------------------------------

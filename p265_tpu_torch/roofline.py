@@ -60,7 +60,9 @@ bound):
 - Kernels: `itransform` (K1) is the residual stage; `mc` (K2) ends at the
   14-bit intermediates: references and block records in, B^2 int16 a
   block and list out, and the filter's operations; `scan` is the scan
-  stage.
+  stage; `deblock` (the luma and chroma kernels, both directions) is the
+  deblocking stage and `sao` the SAO stage: each filter kernel is the
+  whole of its stage.
 - Operation types: each function's operations are counted at the rate
   of the narrowest type that computes them exactly.  The MC filter
   multiplies 8-bit samples (first pass) or 16-bit intermediates (second
@@ -105,7 +107,7 @@ PEAKS = {
 # count or of the measurement
 MAX_SHARE = 1.05
 STAGES = ("mc", "residual", "scan", "deblock", "sao", "fetch")
-KERNELS = ("itransform", "mc", "scan")
+KERNELS = ("itransform", "mc", "scan", "deblock", "sao")
 PLANES = ("y", "cb", "cr")
 # a TU is counted in exactly one class, in this order of precedence
 TU_CLASSES = ("bypass", "tskip", "dst", "dct")
@@ -339,6 +341,7 @@ def picture_work(pic: dict) -> dict:
                           zip(plane_bytes, f["sao"]) if on), 0)
     out["fetch"] = Work(sum(plane_bytes), 0, link=True)
     out["k:itransform"], out["k:mc"], out["k:scan"] = res, k2, scan
+    out["k:deblock"], out["k:sao"] = out["deblock"], out["sao"]
     return out
 
 

@@ -5,13 +5,17 @@ Counterpart of p265_tpu/shard/filters.py.  SAO's edge offsets read a
 row from each neighbour.  Whether a neighbour exists is decided by the
 GLOBAL row index, so rank 0's top halo and the last rank's bottom halo
 (zeros) are never read as neighbours.  Bit-exact vs the unsharded SAO.
+On CUDA tensors the row block runs through the SAO kernel of
+csrc/loopfilter.cu (kernels/loopfilter.py sao_kernel, with the block's
+first row and the picture's height); on CPU tensors through `_sao_local`,
+its plain version.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-from p265_tpu_torch.kernels.loopfilter import sao_maps
+from p265_tpu_torch.kernels.loopfilter import on_cuda, sao_kernel, sao_maps
 from p265_tpu_torch.shard.mesh import (all_gather, halo_exchange_rows,
                                        join_rows, local_rows)
 from p265_tpu_torch.syntax.ctu import SAO_BAND, SAO_EDGE
@@ -53,6 +57,25 @@ def _sao_local(local, top, bot, ty, cls, offs, row0: int, total_h: int):
     return (v + delta).clamp(0, 255)
 
 
+def sao_rows(local, top, bot, ty_g, cls_g, offs_g, ctb: int, row0: int,
+             total_h: int):
+    """SAO of the row block [hl, W] int32 that starts at picture row row0,
+    with its halo rows top and bot [1, W]; ty_g/cls_g [ny,nx] and offs_g
+    [4,ny,nx] are the plane's CTB maps (rows past the map take its last
+    CTB row; they lie past the picture and are cut off)."""
+    if on_cuda(local, "sao_rows"):
+        return sao_kernel(torch.cat([top, local, bot])[None], ty_g[None],
+                          cls_g[None], offs_g[None], ctb, row0, total_h,
+                          halo=1)[0]
+    hl, W = local.shape
+    dev = local.device
+    ys = ((row0 + torch.arange(hl, device=dev)) // ctb).clamp(
+        max=ty_g.shape[0] - 1)
+    xs = torch.arange(W, device=dev) // ctb
+    return _sao_local(local, top, bot, ty_g[ys][:, xs], cls_g[ys][:, xs],
+                      offs_g[:, ys][:, :, xs], row0, total_h)
+
+
 def sao_sharded(plan, planes: list, group, device) -> list:
     """Row-block-sharded SAO over the ranks of `group`: [y, cb, cr] planes
     (the same on every rank; numpy or tensors) -> the filtered int32
@@ -71,18 +94,10 @@ def sao_sharded(plan, planes: list, group, device) -> list:
         H, W = plane.shape
         ctb = plan.sps.ctb_size if c == 0 else plan.sps.ctb_size >> 1
         hl = -(-H // (n * 8)) * 8      # row blocks on an 8-row grid
-        r0 = rank * hl
-        # per-sample CTB parameters of the local rows (rows past H take the
-        # last CTB row's; they are cut off and never read as neighbours)
-        ty_g, cls_g, offs_g = (torch.as_tensor(a).to(device)
-                               for a in sao_maps(plan, c))
-        ys = ((r0 + torch.arange(hl, device=device)) // ctb).clamp(
-            max=ty_g.shape[0] - 1)
-        xs = torch.arange(W, device=device) // ctb
-        ty, cls = ty_g[ys][:, xs], cls_g[ys][:, xs]
-        offs = offs_g[:, ys][:, :, xs]
         local = local_rows(plane, rank, hl)
         top, bot = halo_exchange_rows(local, 1, group)
-        out = _sao_local(local, top, bot, ty, cls, offs, r0, H)
+        out = sao_rows(local, top, bot, *(torch.as_tensor(a).to(device)
+                                          for a in sao_maps(plan, c)),
+                       ctb, rank * hl, H)
         outs.append(join_rows(all_gather(out, group), H))
     return outs

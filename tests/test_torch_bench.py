@@ -37,7 +37,8 @@ def test_bench_run_passes_its_gate():
     assert out["cold"]["frames"] == 5 and len(out["warm"]) == 1
     assert out["fps"] == 5 / out["warm"][0]["seconds"]
     # no card: no kernel launched, no profile, no steady-state companion
-    assert out["warm"][0]["launches"] == dict(itransform=0, mc=0, scan=0)
+    assert out["warm"][0]["launches"] == dict(itransform=0, mc=0, scan=0,
+                                              deblock=0, sao=0)
     assert "profile" not in out and "steady" not in out
 
 

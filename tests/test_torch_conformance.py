@@ -8,7 +8,10 @@ inter pictures and reference-list modification (tests/test_cu_qp_delta.py),
 several slices, dependent slice segments, slices with tiles and with WPP
 (tests/test_multislice.py), weighted prediction over short- and long-term
 references (tests/test_conformance_corners.py), and the CRA / RASL / BLA /
-EOS splices of tests/test_rasl.py.  Sizes 96x64 to 192x128.
+EOS splices of tests/test_rasl.py.  Sizes 96x64 to 192x128.  The recipes
+live in p265_tpu_torch/testgen/conformance.py (tests/test_torch_gpu.py
+decodes them on the card), with the port's copies of the JAX tests' two
+helpers, held here against the originals.
 """
 import functools
 
@@ -20,126 +23,10 @@ from test_rasl import _splice_from_cra
 from p265_tpu.golden.decoder import GoldenDecoder
 from p265_tpu_torch.hls import nal
 from p265_tpu_torch.hls.params import PPS, SPS
-from p265_tpu_torch.hls.slice_header import SLICE_I
 from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
 from p265_tpu_torch.pipeline.decoder import TorchDecoder
-from p265_tpu_torch.testgen.encoder import (Encoder, IntraEncoder,
-                                            make_moving_sequence,
-                                            make_test_image)
-
-
-def _gop(structure, n, seed, qp=32, w=96, h=64, sps_kw=None, num_slices=1,
-         **pps_kw):
-    sps = SPS(pic_width=w, pic_height=h, temporal_mvp_enabled=True,
-              **(sps_kw or {}))
-    pps = PPS(init_qp=qp, **pps_kw)
-    return Encoder(sps, pps, qp=qp, seed=seed).encode_sequence(
-        make_moving_sequence(w, h, n, seed=seed), structure=structure,
-        num_slices=num_slices)[0]
-
-
-def _sliced_intra(seed, num_slices, dependent=False, w=128, h=128, qp=31,
-                  **pps_kw):
-    sps = SPS(pic_width=w, pic_height=h)
-    pps = PPS(init_qp=qp, sign_data_hiding=True, **pps_kw)
-    nb = Encoder(sps, pps, qp=qp, seed=seed).encode_frame(
-        make_test_image(w, h, seed), poc=0, slice_type=SLICE_I,
-        num_slices=num_slices, dependent_slices=dependent)[0]
-    return _param_nals(sps, pps) + nb
-
-
-_LT = dict(long_term_ref_pics_present=True, num_reorder_pics=2,
-           max_dec_pic_buffering=6)
-
-
-@functools.lru_cache(maxsize=None)
-def _cra():
-    sps = SPS(pic_width=96, pic_height=64, num_reorder_pics=2,
-              max_dec_pic_buffering=6)
-    return Encoder(sps, PPS(init_qp=30), qp=30, seed=7).encode_sequence(
-        make_moving_sequence(96, 64, 8, seed=11), structure="CRA-RASL")[0]
-
-
-def _cra_as_bla():
-    return b"".join(
-        nal.make_nal(nal.NAL_BLA_W_LP if u.nal_type == nal.NAL_CRA
-                     else u.nal_type, u.rbsp)
-        for u in nal.split_nal_units(_cra()))
-
-
-def _eos_before_cra():
-    return b"".join(
-        (nal.make_nal(nal.NAL_EOS, b"") if u.nal_type == nal.NAL_CRA
-         else b"") + nal.make_nal(u.nal_type, u.rbsp)
-        for u in nal.split_nal_units(_cra()))
-
-
-def _qp_delta_intra():
-    sps = SPS(pic_width=128, pic_height=64)
-    pps = PPS(init_qp=30, cu_qp_delta_enabled=True, diff_cu_qp_delta_depth=2,
-              sign_data_hiding=True)
-    return IntraEncoder(sps, pps, qp=30, seed=9).encode_frame(
-        make_test_image(128, 64, 9))[0]
-
-
-# name -> (function that makes the stream, check that the golden decode holds
-# what the case is about)
-STREAMS = {
-    "longterm": (
-        lambda: _gop("LDP-LT", 4, 4, qp=30, sps_kw=_LT,
-                     sign_data_hiding=True),
-        lambda g: any(f.plan.sh.lt_entries for f in g)),
-    "cu_qp_delta_intra": (
-        _qp_delta_intra,
-        lambda g: len(set(g[0].plan.qp_map.ravel().tolist())) > 1),
-    "cu_qp_delta_inter": (
-        lambda: _gop("LDP", 3, 19, cu_qp_delta_enabled=True,
-                     diff_cu_qp_delta_depth=1),
-        lambda g: any(len(set(f.plan.qp_map.ravel().tolist())) > 1
-                      for f in g if f.plan.pus)),
-    "ref_list_modification": (
-        lambda: _gop("LDP2", 4, 21, lists_modification_present=True),
-        lambda g: any(f.plan.sh.ref_pic_list_modification_l0 for f in g)),
-    "multislice_intra": (
-        lambda: _sliced_intra(30, 3, w=192),
-        lambda g: len(set(g[0].plan.slice_of_ctb.tolist())) == 3),
-    "multislice_p_gop": (
-        lambda: _gop("LDP", 3, 31, qp=33, w=128, h=128, num_slices=2,
-                     sign_data_hiding=True),
-        lambda g: all(len(set(f.plan.slice_of_ctb.tolist())) == 2
-                      for f in g)),
-    "dependent_slices": (
-        lambda: _sliced_intra(33, 3, dependent=True, w=192,
-                              dependent_slice_segments_enabled=True),
-        lambda g: True),
-    "multislice_tiles": (
-        lambda: _sliced_intra(40, 2, tiles_enabled=True, num_tile_columns=2,
-                              num_tile_rows=2),
-        lambda g: len(set(g[0].plan.slice_of_ctb.tolist())) == 2),
-    "multislice_wpp": (
-        lambda: _sliced_intra(41, 2, entropy_coding_sync_enabled=True),
-        lambda g: len(set(g[0].plan.slice_of_ctb.tolist())) == 2),
-    "dependent_slices_wpp": (
-        lambda: _sliced_intra(43, 2, dependent=True,
-                              entropy_coding_sync_enabled=True,
-                              dependent_slice_segments_enabled=True),
-        lambda g: True),
-    "weighted_pred_longterm": (
-        lambda: _gop("LDP-LT", 5, 21, qp=30, sps_kw=_LT,
-                     sign_data_hiding=True, weighted_pred=True,
-                     weighted_bipred=True),
-        lambda g: [f.poc for f in g] == list(range(5))),
-    "cra_rasl_full": (
-        _cra, lambda g: [f.poc for f in g] == list(range(8))),
-    "cra_splice": (
-        lambda: _splice_from_cra(_cra()),
-        lambda g: [f.poc for f in g] == [3, 4, 5, 6, 7]),
-    "bla_rewrite": (
-        _cra_as_bla, lambda g: [f.poc for f in g] == [0, 1, 3, 4, 5, 6, 7]),
-    "eos_before_cra": (
-        _eos_before_cra,
-        lambda g: [f.poc for f in g] == [0, 1, 3, 4, 5, 6, 7]),
-}
+from p265_tpu_torch.testgen.conformance import (STREAMS, param_nals,
+                                                splice_from_cra)
 
 
 @functools.lru_cache(maxsize=None)
@@ -164,3 +51,15 @@ def test_matches_golden(name, cls):
             assert np.array_equal(f.planes[c], g.planes[c]), (f.poc, c)
             assert np.array_equal(f.prefilter[c].numpy(),
                                   g.prefilter[c]), (f.poc, c)
+
+
+def test_helpers_equal_the_jax_tests():
+    """The port's param_nals and splice_from_cra give the bytes of the JAX
+    package's tests' _param_nals and _splice_from_cra."""
+    sps = SPS(pic_width=192, pic_height=128)
+    pps = PPS(init_qp=31, sign_data_hiding=True, tiles_enabled=True,
+              num_tile_columns=2, num_tile_rows=2)
+    assert param_nals(sps, pps) == _param_nals(sps, pps)
+    data, _ = _golden("cra_rasl_full")
+    assert splice_from_cra(data) == _splice_from_cra(data)
+    assert splice_from_cra(data) != data

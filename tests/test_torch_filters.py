@@ -1,0 +1,157 @@
+"""The port's loop-filter device functions against the JAX package's, on
+random cases (p265_tpu_torch/testgen/filter_cases.py), bit-exact.
+
+deblock_luma_vertical, deblock_chroma_vertical and sao_apply take their
+plain versions on CPU tensors; each is held against
+p265_tpu.kernels.loopfilter's _deblock_luma_vertical,
+_deblock_chroma_vertical and _sao_apply, vmapped over the batch as
+p265_tpu/pipeline/batch_decode.py:456-475 runs them, with np.array_equal,
+on contiguous planes and on transposed views (the layout of the horizontal
+pass).  The row-sharded SAO (shard/filters.py sao_rows) is held against the
+JAX SAO of the whole plane, block by block.  The kernels of
+csrc/loopfilter.cu are held against these plain versions on the card
+(tests/test_torch_gpu.py).  No tolerance: the result is exact.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+import p265_tpu.kernels.loopfilter as jlf
+from p265_tpu_torch.kernels import loopfilter as lf
+from p265_tpu_torch.shard.filters import sao_rows
+from p265_tpu_torch.testgen import filter_cases as fc
+
+_deblock_luma = jax.vmap(jlf._deblock_luma_vertical.__wrapped__)
+_deblock_chroma = jax.vmap(jlf._deblock_chroma_vertical.__wrapped__)
+
+
+def _sao_jax(src, ty, cls, offs, ctb):
+    return jax.vmap(jlf._sao_apply.__wrapped__, in_axes=(0, 0, 0, 0, None))(
+        src, ty, cls, offs, ctb)
+
+
+def _torch(a: np.ndarray, transposed: bool) -> torch.Tensor:
+    """a [B,H,W] as a tensor, contiguous or a transposed view of
+    contiguous [B,W,H] storage."""
+    if not transposed:
+        return torch.from_numpy(a)
+    return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1))
+                            ).transpose(1, 2)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_deblock_luma_matches_jax(seed, transposed):
+    c = fc.deblock_case(np.random.default_rng(seed), *fc.SHAPES["luma"])
+    planes = _torch(c["planes"], transposed)
+    assert planes.is_contiguous() != transposed
+    args = [torch.from_numpy(c[k]) for k in ("bs", "beta", "tc")]
+    got = lf.deblock_luma_vertical(planes, *args)
+    want = np.asarray(_deblock_luma(c["planes"], c["bs"], c["beta"],
+                                    c["tc"]))
+    assert not np.array_equal(want, c["planes"])
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(planes, _torch(c["planes"], transposed))
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_deblock_chroma_matches_jax(seed, transposed):
+    c = fc.deblock_case(np.random.default_rng(10 + seed),
+                        *fc.SHAPES["chroma"], chroma=True)
+    planes = _torch(c["planes"], transposed)
+    got = lf.deblock_chroma_vertical(planes, torch.from_numpy(c["tc"]))
+    want = np.asarray(_deblock_chroma(c["planes"], c["tc"]))
+    assert not np.array_equal(want, c["planes"])
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("plane", ["luma", "chroma"])
+@pytest.mark.parametrize("ctb", [64, 32, 16])
+def test_sao_matches_jax(ctb, plane, transposed):
+    """CTB 64/32/16 on luma, ctb >> 1 on chroma; the heights are no
+    multiple of the CTB."""
+    B, H, W = fc.SHAPES[plane]
+    size = ctb if plane == "luma" else ctb >> 1
+    assert H % size
+    c = fc.sao_case(np.random.default_rng(ctb + (plane == "chroma")),
+                    B, H, W, size)
+    maps = [torch.from_numpy(c[k]) for k in ("ty", "cls", "offs")]
+    got = lf.sao_apply(_torch(c["src"], transposed), *maps, size)
+    want = np.asarray(_sao_jax(c["src"], c["ty"], c["cls"], c["offs"], size))
+    assert not np.array_equal(want, c["src"])
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_sao_cases_cover_every_class():
+    """The SAO cases hold every type, every edge class and the band
+    positions that wrap."""
+    c = fc.sao_case(np.random.default_rng(0), 8, 72, 136, 16)
+    ty, cls = c["ty"], c["cls"]
+    assert {0, lf.SAO_BAND, lf.SAO_EDGE} <= set(ty.ravel().tolist())
+    assert set(cls[ty == lf.SAO_EDGE].tolist()) == {0, 1, 2, 3}
+    assert set(cls[ty == lf.SAO_BAND].tolist()) >= {28, 29, 30, 31}
+    assert c["offs"].min() == -7 and c["offs"].max() == 7
+
+
+@pytest.mark.parametrize("ctb", [64, 16])
+def test_sao_rows_match_jax(ctb):
+    """Four row blocks of 24 rows (the last one past the picture's 72
+    rows) with one halo row from each neighbour (zeros at the picture's
+    edges), filtered through sao_rows: each equal to its rows of the JAX
+    SAO of the whole plane."""
+    c = fc.sao_case(np.random.default_rng(5), 1, 72, 136, ctb)
+    want = np.asarray(_sao_jax(c["src"], c["ty"], c["cls"], c["offs"],
+                               ctb))[0]
+    maps = [torch.from_numpy(c[k][0]) for k in ("ty", "cls", "offs")]
+    blocks = fc.row_blocks(torch.from_numpy(c["src"][0]), 4, 24)
+    assert [b[0] for b in blocks] == [0, 24, 48, 72]
+    for r0, local, top, bot in blocks:
+        got = sao_rows(local, top, bot, *maps, ctb, r0, 72).numpy()
+        n = max(0, min(24, 72 - r0))
+        assert np.array_equal(got[:n], want[r0:r0 + n]), r0
+
+
+def test_wrappers_refuse_other_devices():
+    c = fc.deblock_case(np.random.default_rng(3), *fc.SHAPES["chroma"],
+                        chroma=True)
+    meta = torch.empty(c["planes"].shape, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        lf.deblock_chroma_vertical(meta, torch.from_numpy(c["tc"]))
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        lf.deblock_luma_vertical(meta, *(torch.from_numpy(c["tc"]),) * 3)
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        lf.sao_apply(meta, *(torch.zeros(1, 1, 1, dtype=torch.int32),) * 3,
+                     64)
+    with pytest.raises(ValueError, match="CUDA"):
+        lf.sao_kernel(torch.from_numpy(c["planes"]), *(
+            torch.zeros(4, 1, 1, dtype=torch.int32),) * 3, 64)
+
+
+def test_main_path_calls_each_filter_function_per_dispatch(monkeypatch):
+    """A CPU TorchDecoder pass on s96x64_ldp5 (both filters on in every
+    slice) calls deblock_luma_vertical and deblock_chroma_vertical twice a
+    dispatch (the horizontal pass on transposed views) and sao_apply twice
+    (luma, then cb and cr together), through the module's attributes: on
+    the card, four deblocking and two SAO launches a dispatch."""
+    from p265_tpu_torch.pipeline.decoder import TorchDecoder
+    from p265_tpu_torch.testgen.streams import get_stream
+    calls = []
+    for name in ("deblock_luma_vertical", "deblock_chroma_vertical",
+                 "sao_apply"):
+        def spy(*a, _name=name, _f=getattr(lf, name)):
+            calls.append((_name, tuple(a[0].shape), a[0].is_contiguous()))
+            return _f(*a)
+        monkeypatch.setattr(lf, name, spy)
+    frames = TorchDecoder("cpu").decode_stream(get_stream("s96x64_ldp5"))
+    assert len(frames) == 5
+    one = [("deblock_luma_vertical", (1, 64, 96)),
+           ("deblock_chroma_vertical", (2, 32, 48)),
+           ("deblock_luma_vertical", (1, 96, 64)),
+           ("deblock_chroma_vertical", (2, 48, 32)),
+           ("sao_apply", (1, 64, 96)), ("sao_apply", (2, 32, 48))]
+    assert [c[:2] for c in calls] == one * 5
+    # the horizontal pass hands over transposed views, not copies
+    assert all(not c[2] for c in calls[2:4])

@@ -21,9 +21,13 @@ from p265_tpu.testgen.encoder import (Encoder, IntraEncoder,
                                       make_moving_sequence, make_test_image)
 from p265_tpu_torch.golden.decoder import GoldenDecoder as PortGolden
 from p265_tpu_torch.kernels import _build, itransform, mc, upload
+from p265_tpu_torch.kernels import loopfilter as lf
 from p265_tpu_torch.pipeline import wavefront as wf
 from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
 from p265_tpu_torch.plan.frame_plan import build_tensor_plan
+from p265_tpu_torch.shard.filters import sao_rows
+from p265_tpu_torch.testgen import conformance
+from p265_tpu_torch.testgen import filter_cases as fc
 from p265_tpu_torch.testgen.scan_cases import (random_scan, wide_scan,
                                                work_items)
 
@@ -293,3 +297,109 @@ def test_scan_kernel_loops_over_steps_wider_than_its_cluster(cuda):
     assert not torch.equal(want, plane)
     assert torch.equal(got, want)
     assert torch.equal(split, want)
+
+
+LAYOUTS = ["contiguous", "transposed", "rows of a taller plane"]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("plane", ["luma", "chroma"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_deblock_kernels_match_plain(cuda, seed, plane, layout):
+    """One launch a call, torch.equal to the plain version, the input
+    unchanged, the output in the input's layout where it is dense; then
+    the same at 1080p widths (B = 2) in both directions."""
+    chroma = plane == "chroma"
+    fn = lf.deblock_chroma_vertical if chroma else lf.deblock_luma_vertical
+    ref = (lf.deblock_chroma_vertical_ref if chroma
+           else lf.deblock_luma_vertical_ref)
+    keys = ("tc",) if chroma else ("bs", "beta", "tc")
+    rng = np.random.default_rng(seed)
+    full = (2, 540, 960) if chroma else (2, 1080, 1920)
+    for shape in (fc.SHAPES[plane], full, full[:1] + full[:0:-1]):
+        c = fc.deblock_case(rng, *shape, chroma=chroma)
+        planes = fc.layouts(c["planes"], cuda)[layout]
+        args = [torch.from_numpy(c[k]).to(cuda) for k in keys]
+        before = _build.LAUNCHES["deblock"]
+        got = fn(planes, *args)
+        assert _build.LAUNCHES["deblock"] == before + 1
+        want = ref(planes, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), shape
+        assert not torch.equal(got, planes)
+        assert np.array_equal(planes.cpu().numpy(), c["planes"])
+        if layout != "rows of a taller plane":
+            assert got.stride() == planes.stride()
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("plane", ["luma", "chroma"])
+@pytest.mark.parametrize("ctb", [64, 32, 16])
+def test_sao_kernel_matches_plain(cuda, ctb, plane, layout):
+    """Every type and class, CTB 64/32/16 (chroma ctb >> 1), heights no
+    multiple of the CTB; then 1080p widths."""
+    rng = np.random.default_rng(ctb)
+    size = ctb if plane == "luma" else ctb >> 1
+    full = (2, 1080, 1920) if plane == "luma" else (4, 540, 960)
+    for shape in (fc.SHAPES[plane], full):
+        c = fc.sao_case(rng, *shape, size)
+        src = fc.layouts(c["src"], cuda)[layout]
+        maps = [torch.from_numpy(c[k]).to(cuda) for k in ("ty", "cls",
+                                                          "offs")]
+        before = _build.LAUNCHES["sao"]
+        got = lf.sao_apply(src, *maps, size)
+        assert _build.LAUNCHES["sao"] == before + 1
+        want = lf.sao_apply_ref(src, *maps, size)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), shape
+        assert not torch.equal(got, src)
+
+
+@pytest.mark.parametrize("ctb", [64, 16])
+def test_sao_rows_kernel_matches_plain(cuda, ctb):
+    """The row-sharded SAO's blocks with their halo rows (the last block
+    past the picture) through the kernel, equal to the plain _sao_local
+    on the same block, and to the rows of the unsharded SAO."""
+    c = fc.sao_case(np.random.default_rng(ctb), 1, 1080, 1920, ctb)
+    maps = [torch.from_numpy(c[k][0]) for k in ("ty", "cls", "offs")]
+    whole = lf.sao_apply_ref(torch.from_numpy(c["src"]),
+                             *(m[None] for m in maps), ctb)[0]
+    # 4 blocks of 272 rows, the last 8 past the picture
+    for r0, *blk in fc.row_blocks(torch.from_numpy(c["src"][0]), 4, 272):
+        want = sao_rows(*blk, *maps, ctb, r0, 1080)
+        before = _build.LAUNCHES["sao"]
+        got = sao_rows(*(t.to(cuda) for t in blk),
+                       *(m.to(cuda) for m in maps), ctb, r0, 1080)
+        assert _build.LAUNCHES["sao"] == before + 1
+        assert torch.equal(got.cpu(), want), r0
+        n = min(272, 1080 - r0)
+        assert torch.equal(want[:n], whole[r0:r0 + n]), r0
+
+
+@pytest.mark.parametrize("name", sorted(conformance.STREAMS))
+def test_conformance_streams_on_cuda_match_golden(cuda, name):
+    """The stream kinds of tests/test_torch_conformance.py (several
+    slices, dependent slices, slices with tiles and with WPP, cu_qp_delta,
+    long-term references, CRA/RASL/BLA) on the card, every plane before
+    and after the filters equal to golden's; the filter kernels launched
+    wherever the stream's flags turn the filters on."""
+    make, holds = conformance.STREAMS[name]
+    data = make()
+    gold = GoldenDecoder().decode_stream(data)
+    assert holds(gold), "the stream does not hold the case"
+    _build.reset_launch_counts()
+    got = PipelinedTorchDecoder(cuda).decode_stream(data)
+    launches = dict(_build.LAUNCHES)
+    assert launches["itransform"] > 0 and launches["scan"] > 0, launches
+    plans = [g.plan for g in gold]
+    assert (launches["deblock"] > 0) == any(
+        not p.sh.deblocking_filter_disabled for p in plans), launches
+    assert (launches["sao"] > 0) == any(
+        p.sps.sao_enabled and (p.sh.sao_luma or p.sh.sao_chroma)
+        for p in plans), launches
+    assert [f.poc for f in got] == [g.poc for g in gold]
+    for f, g in zip(got, gold):
+        for c in range(3):
+            assert np.array_equal(f.planes[c], g.planes[c]), (f.poc, c)
+            assert np.array_equal(f.prefilter[c].cpu().numpy(),
+                                  g.prefilter[c]), (f.poc, c)

@@ -222,6 +222,25 @@ def test_census_equals_the_kernel_calls(censuses, name, monkeypatch):
                                               pic["ref_samples"])), poc
 
 
+def test_filter_kernels_are_their_stages(censuses):
+    """The deblocking and SAO kernels do the whole of their stages: on
+    s96x64_ldp5 (both filters on in every picture) their work equals the
+    stages', picture by picture and summed, and the kernels are listed
+    after the three others."""
+    assert roofline.KERNELS == ("itransform", "mc", "scan", "deblock", "sao")
+    pics = censuses["s96x64_ldp5"]
+    assert all(p["filters"] == dict(deblock=True, sao=[True] * 3)
+               for p in pics)
+    for pic in pics:
+        pw = roofline.picture_work(pic)
+        for k in ("deblock", "sao"):
+            assert pw["k:" + k] == pw[k] and pw[k].bytes > 0, (pic["poc"], k)
+    w = roofline.work(pics)
+    for k in ("deblock", "sao"):
+        assert w["kernels"][k] == w["stages"][k]
+        assert w["kernels"][k].ops == 0
+
+
 def test_byte_and_operation_rules():
     """One TU of each size in each class and split, one block of each
     bucket and list, counted by hand."""
