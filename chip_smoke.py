@@ -16,10 +16,12 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    size, every flag, unavailable references outside the plane, empty
    steps, flat and non-flat 32x32 edges; steps wider than the kernel's
    warps; one TU a step), and a split run against one; the deblocking
-   kernels (luma and chroma) and the SAO kernel against their plain
-   versions on random filter cases (testgen/filter_cases.py) at 1080p
-   widths, on contiguous planes, transposed views and row views of a
-   taller plane, and the row-sharded SAO's halo blocks.
+   kernel (both directions of a batch's luma and chroma in one launch,
+   deblock_planes, at 1080p and 4K; and one direction, luma and chroma,
+   as the row-sharded deblocking calls it) and the SAO kernel against
+   their plain versions on random filter cases (testgen/filter_cases.py)
+   at 1080p widths, on contiguous planes, transposed views and row views
+   of a taller plane, and the row-sharded SAO's halo blocks.
 4. small streams: the committed 96x64 LDP, RA (bi-pred) and PCM LDP
    streams (PCM CUs in the I picture and in every P picture, whose MC runs
    through K2), PipelinedTorchDecoder on cuda vs the port's GoldenDecoder,
@@ -40,7 +42,7 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    decoded in the first worker process of phase 10's): one
    cold pass bit-exact against GoldenDecoder on every plane, with the
    kernel launch counters reset just before it (3 MC, 7 residual, 4
-   scan, 16 deblocking and 8 SAO launches a pass); then 3 warm passes.
+   scan, 4 deblocking and 8 SAO launches a pass); then 3 warm passes.
 10. streams: every stream of p265_tpu_torch/testgen/streams.py that no
    other phase decodes (STREAMS: 416x240 and 832x480 LDP, 1080p intra,
    1080p with 4x2 tiles, with tiles and WPP, 3840x2160 intra, 16 frames of
@@ -54,7 +56,7 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    passes each, in turns; every pass bit-exact against golden on every
    plane before and after the filters; dag_batched, the K1/K2 launches a
    pass, the scan steps of every dispatch (one scan launch each: 8 at 1,
-   5 at 4), four deblocking and two SAO launches a dispatch, and fps with
+   5 at 4), one deblocking and two SAO launches a dispatch, and fps with
    spread for both.
 12. sharded: one process a rank (NCCL with one rank a card where there are
    two cards or more, else two ranks sharing cuda:0 over gloo).  The space
@@ -84,8 +86,8 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    (`floor_ms`: the same launches computing no TU); the TUs a step (max,
    median), the launch shape (one cluster: CTAs, warps), and per step with
    TUs the floor and the chain (device - floor).  The deblocking row
-   counts the luma and the chroma kernel of both directions (the
-   horizontal pass on transposed views), the SAO row luma and chroma.
+   counts its one launch a dispatch (both directions, luma and chroma),
+   the SAO row luma and chroma.
 14. measuring modules: `python -m p265_tpu_torch.bench --golden DIR` as a
    subprocess (s1080_ldp4 gated against golden, its s1080_ldp16
    steady-state row gated too, both goldens read from the workers' files;
@@ -134,17 +136,17 @@ SMALL = (("LDP", "s96x64_ldp5.265"), ("RA", "s96x64_ra5.265"),
          ("PCM LDP", "s96x64_pcm_ldp5.265"))
 # phase 10: stream -> kernel launches a pass (itransform, mc, scan,
 # deblock, sao), as measured on an H100: K1, the scan and the filters
-# (four deblocking and two SAO launches a dispatch) on every stream, K2 on
+# (one deblocking and two SAO launches a dispatch) on every stream, K2 on
 # the P streams only.  The card takes them in this order, the golden
 # workers in the reverse one
 STREAMS = {
-    "s416_ldp4": (7, 3, 4, 16, 8),
-    "s832_ldp4": (7, 3, 4, 16, 8),
-    "s1080": (1, 0, 1, 4, 2),
-    "s1080_t8": (1, 0, 1, 4, 2),
-    "s1080_t8w": (1, 0, 1, 4, 2),
-    "s4k": (1, 0, 1, 4, 2),
-    "s1080_ldp16": (31, 15, 16, 64, 32),
+    "s416_ldp4": (7, 3, 4, 4, 8),
+    "s832_ldp4": (7, 3, 4, 4, 8),
+    "s1080": (1, 0, 1, 1, 2),
+    "s1080_t8": (1, 0, 1, 1, 2),
+    "s1080_t8w": (1, 0, 1, 1, 2),
+    "s4k": (1, 0, 1, 1, 2),
+    "s1080_ldp16": (31, 15, 16, 16, 32),
 }
 GOLDEN_WORKERS = 3
 KERNELS = {  # name -> (source, the TPU kernel it replaces, launches a pass)
@@ -157,7 +159,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, launches a pass)
              "Pallas kernel)", 4),
     "deblock": ("p265_tpu_torch/csrc/loopfilter.cu",
                 "p265_tpu/kernels/loopfilter.py:146 and :231 (jax.jit, "
-                "XLA; not Pallas kernels)", 16),
+                "XLA; not Pallas kernels)", 4),
     "sao": ("p265_tpu_torch/csrc/loopfilter.cu",
             "p265_tpu/kernels/loopfilter.py:296 (jax.jit, XLA; not a "
             "Pallas kernel)", 8),
@@ -344,6 +346,20 @@ def _filter_sweeps(rng, dev, errs: dict) -> None:
     from p265_tpu_torch.kernels import loopfilter as lf
     from p265_tpu_torch.shard.filters import sao_rows
     from p265_tpu_torch.testgen import filter_cases as fc
+    for shape in ((2, 1080, 1920), (1, 2160, 3840)):
+        c = fc.deblock_planes_case(rng, *shape)
+        fp = {k: torch.from_numpy(v).to(dev) for k, v in c.items()
+              if k not in ("luma", "chroma")}
+        for name in ("contiguous", "transposed", "rows of a taller plane"):
+            luma, chroma = (fc.layouts(c[k], dev)[name]
+                            for k in ("luma", "chroma"))
+            got = lf.deblock_planes(luma, chroma, fp)
+            want = lf.deblock_planes_ref(luma, chroma, fp)
+            torch.cuda.synchronize()
+            require(not torch.equal(want[0], luma), "deblock_planes sweep: "
+                    "the plain version filtered nothing")
+            errs["deblock"] = max(errs["deblock"], _max_err(
+                got, want, f"deblock_planes {shape} {name}"))
     for chroma, shape in ((False, (2, 1080, 1920)), (False, (2, 1920, 1080)),
                           (True, (4, 540, 960)), (True, (4, 960, 540))):
         c = fc.deblock_case(rng, *shape, chroma=chroma)
@@ -384,8 +400,11 @@ def _filter_sweeps(rng, dev, errs: dict) -> None:
                         64, r0, 1080)
         errs["sao"] = max(errs["sao"], _max_err(
             [got.cpu()], [want], f"sao rows from {r0}"))
-    log("deblock == plain: luma [2,1080,1920] and [2,1920,1080], chroma "
-        "[4,540,960] and [4,960,540], each contiguous, as a transposed "
+    log("deblock == plain: deblock_planes (both directions, one launch) "
+        "on luma [2,1080,1920] with chroma [4,540,960] and luma "
+        "[1,2160,3840] with chroma [2,1080,1920]; one direction on luma "
+        "[2,1080,1920] and [2,1920,1080], chroma [4,540,960] and "
+        "[4,960,540]; each contiguous, as a transposed "
         "view and as rows of a taller plane; bS 0..2, beta 0..64, tc "
         "0..24, strong, normal and no filter.  sao == plain: CTB 64/32/16 "
         "(chroma 32/16/8) at 1080p in the same three layouts, every type "
@@ -444,12 +463,12 @@ def phase_small_streams() -> None:
 
 
 def _filter_launches(launches: dict, dispatches: int, what: str) -> None:
-    """Four deblocking launches (luma and chroma, each direction) and two
+    """One deblocking launch (luma and chroma, both directions) and two
     SAO launches (luma, chroma) a dispatch: every stream here turns both
     filters on in every slice."""
-    require(launches["deblock"] == 4 * dispatches
+    require(launches["deblock"] == dispatches
             and launches["sao"] == 2 * dispatches,
-            f"{what}: launches {launches}, expected 4 deblocking and 2 SAO "
+            f"{what}: launches {launches}, expected 1 deblocking and 2 SAO "
             f"launches for each of {dispatches} dispatches")
 
 
@@ -895,9 +914,7 @@ def _keep(t):
 
 # the main path's filter functions (kernels/loopfilter.py): kernel name
 # of each, the wrapper's name (its plain version is name + "_ref")
-FILTER_FUNCTIONS = {"deblock_luma_vertical": "deblock",
-                    "deblock_chroma_vertical": "deblock",
-                    "sao_apply": "sao"}
+FILTER_FUNCTIONS = {"deblock_planes": "deblock", "sao_apply": "sao"}
 
 
 def _capture_main_path(data: bytes) -> dict:
@@ -1120,8 +1137,8 @@ def phase_timing(launches: dict, sharded: dict, dag: dict, errs: dict,
                             "itransform_grouped_kernel"),
              "mc": (mc.mc_blocks_grouped, mc.mc_blocks_grouped_ref,
                     "mc_grouped_kernel"),
-             "deblock": (filter_kernel, filter_plain, "deblock_kernel"),
-             "sao": (filter_kernel, filter_plain, "sao_kernel")}
+             "deblock": (filter_kernel, filter_plain, "deblock_tiles"),
+             "sao": (filter_kernel, filter_plain, "sao_tiles")}
     rows = []
     for name, (kern, plain, symbol) in pairs.items():
         cl = [(a, k) for a, k in calls[name]
@@ -1130,7 +1147,7 @@ def phase_timing(launches: dict, sharded: dict, dag: dict, errs: dict,
                 f"in one pass, expected {KERNELS[name][2]}")
         for a, k in cl:
             got, want = kern(*a, **k), plain(*a, **k)
-            if name in FILTERS:
+            if name == "sao":
                 got, want = [got], [want]
             errs[name] = max(errs[name], _max_err(
                 got, want, f"{name} main-path call"))

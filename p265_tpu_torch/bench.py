@@ -53,10 +53,7 @@ STAGE_FUNCTIONS = {
     "residual": (("p265_tpu_torch.kernels.itransform",
                   "batch_residual_grouped"),),
     "scan": (("p265_tpu_torch.pipeline.wavefront", "scan_plane"),),
-    "deblock": (("p265_tpu_torch.kernels.loopfilter",
-                 "deblock_luma_vertical"),
-                ("p265_tpu_torch.kernels.loopfilter",
-                 "deblock_chroma_vertical")),
+    "deblock": (("p265_tpu_torch.kernels.loopfilter", "deblock_planes"),),
     "sao": (("p265_tpu_torch.kernels.loopfilter", "sao_apply"),),
     "fetch": (("p265_tpu_torch.pipeline.decoder", "fetch_planes"),),
 }

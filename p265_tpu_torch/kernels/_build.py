@@ -47,8 +47,8 @@ _SIGNATURES = {
     # host bucket table, n_buckets, device starts, stride, k0, k1, plane,
     # pw, barrier_only, host angle table, stream
     "p265_scan": [_P, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P],
-    # host parameter row, chroma, stream
-    "p265_deblock": [_P, _I, _P],
+    # host group table, n_groups, both directions, stream
+    "p265_deblock": [_P, _I, _I, _P],
     # host parameter row, stream
     "p265_sao": [_P, _P],
 }

@@ -5,11 +5,13 @@ parameter grids (bS, beta, tc) and per-CTB SAO grids in NumPy (copies of
 the JAX module's host half: the port imports nothing of the JAX package);
 the device filters whole batches of planes.  The horizontal deblocking
 pass is the vertical filter on the transposed planes.  The JAX package ran
-the three device functions as XLA; here `deblock_luma_vertical`,
-`deblock_chroma_vertical` and `sao_apply` launch the hand-written kernels
-of csrc/loopfilter.cu on CUDA tensors (one launch a call over all the
-planes of the batch) and take their plain versions (`*_ref`,
-branch-free int32 torch) on CPU tensors.
+the three device functions as XLA; here `deblock_planes` (both directions
+of a batch's luma and chroma), `deblock_luma_vertical` and
+`deblock_chroma_vertical` (one direction, on any strides: the row-sharded
+deblocking) and `sao_apply` launch the hand-written kernels of
+csrc/loopfilter.cu on CUDA tensors (one launch a call over all the planes
+of the batch) and take their plain versions (`*_ref`, branch-free int32
+torch) on CPU tensors.
 
 One assembly of the chain serves every caller: `pack_filter_params` (host)
 and `filter_planes` (device: deblocking, SAO, then the restore of the
@@ -340,59 +342,120 @@ def _int32(t, what: str, shape, device) -> torch.Tensor:
     return t.contiguous()
 
 
-def _deblock_kernel(planes, params: list, chroma: bool):
-    """One launch of csrc/loopfilter.cu's deblocking over the B planes;
-    planes may be any strided view (the transposed planes of the
-    horizontal pass are read and written in their storage order, with no
-    copy); the output has the input's strides where the input is dense."""
-    name = ("deblock_chroma_vertical" if chroma
-            else "deblock_luma_vertical")
-    dev = planes.device
-    if planes.dim() != 3 or planes.dtype != torch.int32:
-        raise ValueError(f"{name}: planes must be int32 [B,H,W], got "
-                         f"{planes.dtype} {tuple(planes.shape)}")
-    B, H, W = planes.shape
-    n_e = params[-1].shape[-1]
-    if H % 4 or 8 * n_e + (2 if chroma else 4) > W:
-        raise ValueError(f"{name}: {n_e} edges do not fit planes of "
-                         f"{H}x{W}")
-    params = [_int32(t, f"{name}: edge parameters", (B, H // 4, n_e), dev)
-              for t in params]
-    out = torch.empty_like(planes)
-    if out.numel():
-        ptrs = [t.data_ptr() for t in params]
-        if chroma:
-            ptrs = [0, 0, *ptrs]            # no bs, no beta
-        q = np.array([planes.data_ptr(), out.data_ptr(), *ptrs, B, H, W,
-                      n_e, *planes.stride(), *out.stride(),
-                      planes.stride(1) < planes.stride(2)],
-                     np.int64)
+def _deblock_launch(name: str, groups: list, both: bool) -> list:
+    """ONE launch of csrc/loopfilter.cu's deblocking over a table of plane
+    groups [(planes [B,H,W], vertical parameters, horizontal parameters or
+    None, chroma)]: luma parameters are (bS, beta, tc), chroma ones (tc,),
+    the vertical ones [B, H//4, n_ev] and the horizontal ones (the
+    transposed layout) [B, W//4, n_eh].  both: the vertical edges, then the
+    horizontal ones; else the vertical edges only.  Planes may be any
+    strided view (a transposed view is read and written in its storage
+    order, with no copy); the outputs are new planes with the input's
+    strides where the input is dense.  -> the outputs, in order."""
+    rows, outs = [], []
+    dev = groups[0][0].device
+    for planes, pv, ph, chroma in groups:
+        if (planes.dim() != 3 or planes.dtype != torch.int32
+                or planes.device != dev):
+            raise ValueError(f"{name}: planes must be int32 [B,H,W] on "
+                             f"{dev}, got {planes.dtype} "
+                             f"{tuple(planes.shape)} on {planes.device}")
+        B, H, W = planes.shape
+        reach = 2 if chroma else 4
+        n_ev = pv[-1].shape[-1]
+        n_eh = ph[-1].shape[-1] if both else 0
+        if (H % 4 or (both and W % 4) or 8 * n_ev + reach > W
+                or 8 * n_eh + reach > H):
+            raise ValueError(f"{name}: {n_ev} vertical and {n_eh} "
+                             f"horizontal edges do not fit planes of "
+                             f"{H}x{W}")
+        pv = [_int32(t, f"{name}: vertical edge parameters",
+                     (B, H // 4, n_ev), dev) for t in pv]
+        ph = ([_int32(t, f"{name}: horizontal edge parameters",
+                      (B, W // 4, n_eh), dev) for t in ph] if both else [])
+        out = torch.empty_like(planes)
+        outs.append(out)
+        if not out.numel():
+            continue
+
+        def ptrs(ts):
+            # chroma has no bS and no beta
+            return [0, 0] * chroma + [t.data_ptr() for t in ts]
+
+        rows.append([planes.data_ptr(), out.data_ptr(), *ptrs(pv),
+                     *(ptrs(ph) if both else [0, 0, 0]), int(chroma), B, H,
+                     W, n_ev, n_eh, *planes.stride(), *out.stride()])
+    if rows:
+        table = np.array(rows, np.int64)
         lib = _build.library()
         with torch.cuda.device(dev):
-            err = lib.p265_deblock(q.ctypes.data, int(chroma),
+            err = lib.p265_deblock(table.ctypes.data, len(rows), int(both),
                                    torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "deblock")
         _build.LAUNCHES["deblock"] += 1
-    return out
+    return outs
 
 
 def deblock_luma_vertical(planes, bs, beta, tc):
     """planes [B,H,W] int32 (any strides); bs/beta/tc [B, H//4, n_e] int32;
     edges at x = 8(k+1).  Returns new planes; the inputs are not modified.
     A CPU tensor takes deblock_luma_vertical_ref; a CUDA tensor launches
-    csrc/loopfilter.cu once for all B planes."""
+    csrc/loopfilter.cu once for all B planes (one direction)."""
     if not on_cuda(planes, "deblock_luma_vertical"):
         return deblock_luma_vertical_ref(planes, bs, beta, tc)
-    return _deblock_kernel(planes, [bs, beta, tc], chroma=False)
+    return _deblock_launch("deblock_luma_vertical",
+                           [(planes, [bs, beta, tc], None, False)],
+                           both=False)[0]
 
 
 def deblock_chroma_vertical(planes, tc):
     """planes [B,Hc,Wc] int32 (any strides); tc [B, Hc//4, n_e] int32;
     edges at x = 8(k+1).  CPU: deblock_chroma_vertical_ref; CUDA: one
-    launch of csrc/loopfilter.cu."""
+    launch of csrc/loopfilter.cu (one direction)."""
     if not on_cuda(planes, "deblock_chroma_vertical"):
         return deblock_chroma_vertical_ref(planes, tc)
-    return _deblock_kernel(planes, [tc], chroma=True)
+    return _deblock_launch("deblock_chroma_vertical",
+                           [(planes, [tc], None, True)], both=False)[0]
+
+
+def _edge_params(fp: dict, key: str) -> tuple:
+    """(luma (bS, beta, tc), chroma (tc,)) of one direction of fp."""
+    return ([fp[f"{n}_{key}"] for n in ("bs", "beta", "tc")],
+            [fp[f"tcc_{key}"]])
+
+
+def deblock_planes_ref(luma, chroma, fp: dict) -> tuple:
+    """Plain version of deblock_planes: the vertical edges, then the
+    horizontal ones as the vertical filter on the transposes."""
+    for key in ("v", "h"):
+        if key == "h":
+            luma, chroma = luma.transpose(1, 2), chroma.transpose(1, 2)
+        lp, cp = _edge_params(fp, key)
+        if lp[0].shape[2]:
+            luma = deblock_luma_vertical_ref(luma, *lp)
+        if cp[0].shape[2]:
+            chroma = deblock_chroma_vertical_ref(chroma, *cp)
+        if key == "h":
+            luma, chroma = luma.transpose(1, 2), chroma.transpose(1, 2)
+    return luma, chroma
+
+
+def deblock_planes(luma, chroma, fp: dict) -> tuple:
+    """The deblocking of a batch: luma [F,H,W] and chroma [2F,Hc,Wc] int32
+    (any strides: rows of the tall plane on the batch path), fp the
+    vertical (bs_v, beta_v, tc_v, tcc_v) and horizontal (bs_h, beta_h,
+    tc_h, tcc_h: the transposed layout) edge parameters of
+    pack_filter_params -> new planes, deblocked vertically, then
+    horizontally; the inputs are not modified.  A CPU tensor takes
+    deblock_planes_ref; a CUDA tensor launches csrc/loopfilter.cu ONCE for
+    both directions and both plane groups."""
+    if not on_cuda(luma, "deblock_planes"):
+        return deblock_planes_ref(luma, chroma, fp)
+    (lv, cv), (lh, ch) = _edge_params(fp, "v"), _edge_params(fp, "h")
+    luma, chroma = _deblock_launch(
+        "deblock_planes", [(luma, lv, lh, False), (chroma, cv, ch, True)],
+        both=True)
+    return luma, chroma
 
 
 def sao_kernel(src, ty_g, cls_g, offs_g, ctb: int, row0: int = 0,
@@ -403,7 +466,8 @@ def sao_kernel(src, ty_g, cls_g, offs_g, ctb: int, row0: int = 0,
     the filtered rows [B,H,W] int32.  row0 is the picture row of the first
     filtered row and total_h the picture's height (default H): neighbours
     outside the picture's rows are no neighbours, and rows past the CTB map
-    take its last CTB row."""
+    take its last CTB row.  CTBs are a power of two from 8 samples; with
+    no halo rows the rows are the picture's from its first."""
     if (src.device.type != "cuda" or src.dim() != 3
             or src.dtype != torch.int32):
         raise ValueError(f"sao: the kernel takes an int32 [B,H,W] CUDA "
@@ -414,10 +478,12 @@ def sao_kernel(src, ty_g, cls_g, offs_g, ctb: int, row0: int = 0,
     H = Hs - 2 * halo
     total_h = H if total_h is None else total_h
     ny, nx = ty_g.shape[1:]
-    if H < 0 or halo < 0 or row0 < 0 or ny * ctb < total_h or nx * ctb < W:
+    if (H < 0 or halo < 0 or row0 < 0 or ny * ctb < total_h or nx * ctb < W
+            or ctb < 8 or ctb & (ctb - 1)
+            or (not halo and (row0 or H < total_h))):
         raise ValueError(f"sao: a {ny}x{nx} map of {ctb}-sample CTBs does "
                          f"not cover {total_h}x{W} (rows {row0}.., halo "
-                         f"{halo})")
+                         f"{halo}), or the CTB is no power of two from 8")
     maps = [_int32(t, f"sao: {n}", shape, dev) for t, n, shape in (
         (ty_g, "types", (B, ny, nx)), (cls_g, "classes", (B, ny, nx)),
         (offs_g, "offsets", (B, 4, ny, nx)))]
@@ -508,22 +574,11 @@ def pack_filter_params(plans: list, flags=None, masks: bool = True) -> dict:
 def filter_planes(luma, chroma, fp: dict, ctb: int) -> tuple:
     """Device: luma [F,H,W] and chroma [2F,Hc,Wc] int32 prefilter planes ->
     the filtered pair; fp is pack_filter_params' dict as tensors on the
-    planes' device, ctb the luma CTB size."""
+    planes' device, ctb the luma CTB size.  On the card: one deblocking
+    launch (deblock_planes) and two SAO launches (luma; cb and cr)."""
     pre_luma, pre_chroma = luma, chroma
-    # deblocking: vertical edges, then horizontal on the transposes
     if "bs_v" in fp:
-        for key in ("v", "h"):
-            if key == "h":
-                luma, chroma = luma.transpose(1, 2), chroma.transpose(1, 2)
-            bs = fp[f"bs_{key}"]
-            if bs.shape[2]:
-                luma = deblock_luma_vertical(luma, bs, fp[f"beta_{key}"],
-                                             fp[f"tc_{key}"])
-            tcc = fp[f"tcc_{key}"]
-            if tcc.shape[2]:
-                chroma = deblock_chroma_vertical(chroma, tcc)
-            if key == "h":
-                luma, chroma = luma.transpose(1, 2), chroma.transpose(1, 2)
+        luma, chroma = deblock_planes(luma, chroma, fp)
     if "sao_ty_0" in fp:
         luma = sao_apply(luma, fp["sao_ty_0"], fp["sao_cls_0"],
                          fp["sao_off_0"], ctb)

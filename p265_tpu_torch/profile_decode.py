@@ -63,8 +63,7 @@ def _stage_table(data: bytes, dag: int) -> dict:
               (bd, "mc_pred_planes", "MC"),
               (wf, "expand", "intra residual"),
               (wf, "scan_plane", "scan"),
-              (lf, "deblock_luma_vertical", "deblock"),
-              (lf, "deblock_chroma_vertical", "deblock"),
+              (lf, "deblock_planes", "deblock"),
               (lf, "sao_apply", "SAO")]
     saved = [(m, n, getattr(m, n)) for m, n, _ in stages]
     for m, n, label in stages:

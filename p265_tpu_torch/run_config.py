@@ -213,7 +213,7 @@ def parse_lanes(data: bytes, info: dict) -> dict:
 # kernel -> its symbol in the device trace
 KERNEL_SYMBOLS = {"itransform": "itransform_grouped_kernel",
                   "mc": "mc_grouped_kernel", "scan": "scan_kernel",
-                  "deblock": "deblock_kernel", "sao": "sao_kernel"}
+                  "deblock": "deblock_tiles", "sao": "sao_tiles"}
 
 
 def profile_pass(data: bytes, device: str) -> dict:

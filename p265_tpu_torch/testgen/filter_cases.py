@@ -1,10 +1,12 @@
 """Random loop-filter cases for holding the filter kernels
 (csrc/loopfilter.cu) against their plain versions and the plain versions
 against the JAX package: `deblock_case` builds planes and per-segment edge
-parameters for the vertical-edge filter, `sao_case` planes and per-CTB SAO
-maps, all NumPy int32 from a seeded generator; `layouts` lays planes out
-as the filters receive them, `row_blocks` cuts a plane as the row-sharded
-SAO does.
+parameters for the vertical-edge filter, `deblock_planes_case` a batch's
+luma and chroma planes with the parameters of both directions (the
+`deblock_planes` layout), `sao_case` planes and per-CTB SAO maps, all
+NumPy int32 from a seeded generator; `layouts` lays planes out as the
+filters receive them, `row_blocks` cuts a plane as the row-sharded SAO
+does, and `tiled_deblock` is a model of the deblocking kernel's tiling.
 
 The planes are 8-column blocks of a level each, the levels a random walk
 (small steps, some large), with noise of an amplitude that varies by
@@ -57,17 +59,110 @@ def deblock_case(rng, B: int, H: int, W: int, chroma: bool = False) -> dict:
     """{"planes": [B,H,W], "tc": [B,H//4,n_e], and for luma "bs" and
     "beta"} int32: a quarter of the segments have bS 0, and a tenth of the
     rest beta or tc 0."""
-    shape = (B, H // 4, n_edges(W))
+    return dict(planes=planes(rng, B, H, W),
+                **_random_params(rng, (B, H // 4, n_edges(W)), chroma))
+
+
+def deblock_planes_case(rng, F: int, H: int, W: int) -> dict:
+    """{"luma": [F,H,W], "chroma": [2F,H/2,W/2]} int32 planes and the edge
+    parameters of both directions under pack_filter_params' keys
+    (bs/beta/tc/tcc _v: [., rows/4, edges along x]; _h: the transposed
+    layout [., columns/4, edges along y]), drawn as deblock_case draws
+    them."""
+    Hc, Wc = H // 2, W // 2
+    case = {"luma": planes(rng, F, H, W), "chroma": planes(rng, 2 * F, Hc,
+                                                          Wc)}
+    for key, (h, w), (hc, wc) in (("v", (H, W), (Hc, Wc)),
+                                  ("h", (W, H), (Wc, Hc))):
+        lp = _random_params(rng, (F, h // 4, n_edges(w)), chroma=False)
+        cp = _random_params(rng, (2 * F, hc // 4, n_edges(wc)), chroma=True)
+        case.update({f"{k}_{key}": v for k, v in lp.items()})
+        case[f"tcc_{key}"] = cp["tc"]
+    return case
+
+
+def _random_params(rng, shape, chroma: bool) -> dict:
+    """The edge parameters of one grid: tc, and bs, beta for luma."""
     tc = rng.integers(0, 25, shape)
     tc[rng.random(shape) < 0.1] = 0
-    case = dict(planes=planes(rng, B, H, W), tc=tc.astype(np.int32))
+    out = dict(tc=tc.astype(np.int32))
     if not chroma:
         bs = rng.integers(0, 3, shape)
         bs[rng.random(shape) < 0.25] = 0
         beta = rng.integers(0, 65, shape)
         beta[rng.random(shape) < 0.1] = 0
-        case.update(bs=bs.astype(np.int32), beta=beta.astype(np.int32))
-    return case
+        out.update(bs=bs.astype(np.int32), beta=beta.astype(np.int32))
+    return out
+
+
+def tiled_deblock(luma, chroma, fp: dict, tile: tuple = (32, 32)) -> tuple:
+    """A model, in plain torch, of how csrc/loopfilter.cu's deblock_tiles
+    cuts deblock_planes: each (th, tw) tile of every plane (th, tw
+    multiples of 8; the last ones partial) is cropped with a 4-sample halo
+    on every side (zeros outside the plane), the crop is deblocked
+    vertically, then horizontally, with the parameters of its own edges
+    (those at the tile's left column and top row and every 8 samples after
+    them, to the first past it), and only the tile's own samples are kept.
+    The result equals deblock_planes_ref when the halo holds all that a
+    tile's samples depend on."""
+    from p265_tpu_torch.kernels import loopfilter as lf
+
+    def lp(key):
+        return [fp[f"{n}_{key}"] for n in ("bs", "beta", "tc")]
+
+    return (_tiled(luma, lp("v"), lp("h"), lf.deblock_luma_vertical_ref,
+                   tile),
+            _tiled(chroma, [fp["tcc_v"]], [fp["tcc_h"]],
+                   lf.deblock_chroma_vertical_ref, tile))
+
+
+def _crop(a, i0: int, n: int, axis: int):
+    """n entries of `a` along `axis` from i0, zeros outside it."""
+    if not a.shape[axis]:
+        shape = list(a.shape)
+        shape[axis] = n
+        return a.new_zeros(shape)
+    idx = torch.arange(i0, i0 + n)
+    ok = (idx >= 0) & (idx < a.shape[axis])
+    got = a.index_select(axis, idx.clamp(0, a.shape[axis] - 1))
+    shape = [1] * a.dim()
+    shape[axis] = n
+    return torch.where(ok.view(shape), got, torch.zeros((), dtype=a.dtype))
+
+
+def _tile_params(ps: list, s0: int, k0: int, n_k: int, staged) -> list:
+    """The parameters [B, S, K] of one direction cropped to a canvas: its
+    4-sample segments from s0 (staged: the canvas's lines that hold
+    samples) and n_k edges from k0; zero where no segment is staged or no
+    edge exists."""
+    seg = staged.view(-1, 4)[:, 0].view(1, -1, 1)
+    return [_crop(_crop(p, s0, seg.shape[1], 1), k0, n_k, 2) * seg
+            for p in ps]
+
+
+def _tiled(planes, pv: list, ph: list, fn, tile: tuple):
+    th, tw = tile
+    B, H, W = planes.shape
+    out = torch.empty((B, H, W), dtype=planes.dtype)
+    # the crop sits at (8, 8) of a canvas of (th + 12, tw + 12), so that
+    # the edges at the tile's top row and left column fall on the filter's
+    # 8(k+1) grid; its first 4 rows and columns stay zero
+    for y0 in range(0, H, th):
+        for x0 in range(0, W, tw):
+            canvas = _crop(_crop(planes, y0 - 8, th + 12, 1), x0 - 8,
+                           tw + 12, 2)
+            rows = (torch.arange(y0 - 8, y0 + th + 4) >= y0 - 4)
+            cols = (torch.arange(x0 - 8, x0 + tw + 4) >= x0 - 4)
+            canvas = canvas * (rows[:, None] & cols[None, :])
+            v = _tile_params(pv, (y0 - 8) // 4, x0 // 8 - 1, tw // 8 + 1,
+                             rows)
+            canvas = fn(canvas, *v)
+            h = _tile_params(ph, (x0 - 8) // 4, y0 // 8 - 1, th // 8 + 1,
+                             cols)
+            canvas = fn(canvas.transpose(1, 2), *h).transpose(1, 2)
+            hh, ww = min(th, H - y0), min(tw, W - x0)
+            out[:, y0:y0 + hh, x0:x0 + ww] = canvas[:, 8:8 + hh, 8:8 + ww]
+    return out
 
 
 def sao_case(rng, B: int, H: int, W: int, ctb: int) -> dict:

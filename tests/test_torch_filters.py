@@ -1,18 +1,22 @@
 """The port's loop-filter device functions against the JAX package's, on
 random cases (p265_tpu_torch/testgen/filter_cases.py), bit-exact.
 
-deblock_luma_vertical, deblock_chroma_vertical and sao_apply take their
-plain versions on CPU tensors; each is held against
+deblock_planes, deblock_luma_vertical, deblock_chroma_vertical and
+sao_apply take their plain versions on CPU tensors; each is held against
 p265_tpu.kernels.loopfilter's _deblock_luma_vertical,
 _deblock_chroma_vertical and _sao_apply, vmapped over the batch as
-p265_tpu/pipeline/batch_decode.py:456-475 runs them, with np.array_equal,
-on contiguous planes and on transposed views (the layout of the horizontal
-pass).  The row-sharded SAO (shard/filters.py sao_rows) is held against the
-JAX SAO of the whole plane, block by block.  The kernels of
-csrc/loopfilter.cu are held against these plain versions on the card
-(tests/test_torch_gpu.py).  No tolerance: the result is exact.
+p265_tpu/pipeline/batch_decode.py:449-476 runs them (deblock_planes: both
+directions, the horizontal one on swapped axes), with np.array_equal, on
+contiguous planes, on transposed views (the layout of the single-direction
+horizontal pass) and on rows of a taller plane (the batch path's).  The
+model of the deblocking kernel's tiles (filter_cases.tiled_deblock) is held
+against deblock_planes_ref.  The row-sharded SAO (shard/filters.py
+sao_rows) is held against the JAX SAO of the whole plane, block by block.
+The kernels of csrc/loopfilter.cu are held against these plain versions on
+the card (tests/test_torch_gpu.py).  No tolerance: the result is exact.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -29,6 +33,35 @@ _deblock_chroma = jax.vmap(jlf._deblock_chroma_vertical.__wrapped__)
 def _sao_jax(src, ty, cls, offs, ctb):
     return jax.vmap(jlf._sao_apply.__wrapped__, in_axes=(0, 0, 0, 0, None))(
         src, ty, cls, offs, ctb)
+
+
+def _deblock_planes_jax(luma, chroma, fp):
+    """The JAX package's deblocking of a batch
+    (p265_tpu/pipeline/batch_decode.py:449-466)."""
+    for key in ("v", "h"):
+        if key == "h":
+            luma, chroma = jnp.swapaxes(luma, 1, 2), jnp.swapaxes(chroma, 1, 2)
+        if fp[f"bs_{key}"].shape[2]:
+            luma = _deblock_luma(luma, *(fp[f"{n}_{key}"]
+                                         for n in ("bs", "beta", "tc")))
+        if fp[f"tcc_{key}"].shape[2]:
+            chroma = _deblock_chroma(chroma, fp[f"tcc_{key}"])
+        if key == "h":
+            luma, chroma = jnp.swapaxes(luma, 1, 2), jnp.swapaxes(chroma, 1, 2)
+    return np.asarray(luma), np.asarray(chroma)
+
+
+def _planes_case(seed: int, shape) -> tuple:
+    """(numpy case, its parameters as CPU tensors)."""
+    c = fc.deblock_planes_case(np.random.default_rng(20 + seed), *shape)
+    return c, {k: torch.from_numpy(v) for k, v in c.items()
+               if k not in ("luma", "chroma")}
+
+
+# luma shapes [F,H,W] of the deblock_planes cases: chroma 36 rows (H % 8 ==
+# 4, as 540 is), no vertical chroma edge; no vertical edge at all; no
+# horizontal edge at all
+PLANES_SHAPES = [(2, 72, 136), (1, 72, 16), (1, 40, 8), (1, 8, 40)]
 
 
 def _torch(a: np.ndarray, transposed: bool) -> torch.Tensor:
@@ -65,6 +98,39 @@ def test_deblock_chroma_matches_jax(seed, transposed):
     want = np.asarray(_deblock_chroma(c["planes"], c["tc"]))
     assert not np.array_equal(want, c["planes"])
     assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "rows of a taller plane"])
+@pytest.mark.parametrize("shape", PLANES_SHAPES)
+def test_deblock_planes_ref_matches_jax(shape, layout):
+    """deblock_planes on CPU tensors (its plain version, deblock_planes_ref)
+    equals the JAX vertical-then-horizontal composition; the inputs are not
+    modified."""
+    c, fp = _planes_case(0, shape)
+    luma, chroma = (fc.layouts(c[k], "cpu")[layout]
+                    for k in ("luma", "chroma"))
+    got = lf.deblock_planes(luma, chroma, fp)
+    want = _deblock_planes_jax(c["luma"], c["chroma"], c)
+    for g, w, k in zip(got, want, ("luma", "chroma")):
+        assert not np.array_equal(w, c[k]), k
+        assert np.array_equal(g.numpy(), w), k
+    assert np.array_equal(luma.numpy(), c["luma"])
+    assert np.array_equal(chroma.numpy(), c["chroma"])
+
+
+@pytest.mark.parametrize("tile", [(32, 32), (16, 24)])
+@pytest.mark.parametrize("shape", PLANES_SHAPES)
+def test_tiled_deblock_model_matches_plain(shape, tile):
+    """The kernel's tiling, modelled in plain torch: every tile (the last
+    ones partial) deblocked on its crop with a 4-sample halo equals
+    deblock_planes_ref on the whole planes."""
+    c, fp = _planes_case(1, shape)
+    luma, chroma = torch.from_numpy(c["luma"]), torch.from_numpy(c["chroma"])
+    got = fc.tiled_deblock(luma, chroma, fp, tile)
+    want = lf.deblock_planes_ref(luma, chroma, fp)
+    assert not torch.equal(want[0], luma)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("transposed", [False, True])
@@ -123,6 +189,8 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="no kernel for meta"):
         lf.deblock_luma_vertical(meta, *(torch.from_numpy(c["tc"]),) * 3)
     with pytest.raises(ValueError, match="no kernel for meta"):
+        lf.deblock_planes(meta, meta, {})
+    with pytest.raises(ValueError, match="no kernel for meta"):
         lf.sao_apply(meta, *(torch.zeros(1, 1, 1, dtype=torch.int32),) * 3,
                      64)
     with pytest.raises(ValueError, match="CUDA"):
@@ -132,26 +200,23 @@ def test_wrappers_refuse_other_devices():
 
 def test_main_path_calls_each_filter_function_per_dispatch(monkeypatch):
     """A CPU TorchDecoder pass on s96x64_ldp5 (both filters on in every
-    slice) calls deblock_luma_vertical and deblock_chroma_vertical twice a
-    dispatch (the horizontal pass on transposed views) and sao_apply twice
-    (luma, then cb and cr together), through the module's attributes: on
-    the card, four deblocking and two SAO launches a dispatch."""
+    slice) calls deblock_planes once a dispatch (luma and chroma, both
+    directions; on CPU tensors it reaches deblock_planes_ref) and sao_apply
+    twice (luma, then cb and cr together), through the module's
+    attributes: on the card, one deblocking and two SAO launches a
+    dispatch."""
     from p265_tpu_torch.pipeline.decoder import TorchDecoder
     from p265_tpu_torch.testgen.streams import get_stream
     calls = []
-    for name in ("deblock_luma_vertical", "deblock_chroma_vertical",
-                 "sao_apply"):
+    for name in ("deblock_planes", "deblock_planes_ref", "sao_apply"):
         def spy(*a, _name=name, _f=getattr(lf, name)):
-            calls.append((_name, tuple(a[0].shape), a[0].is_contiguous()))
+            calls.append((_name, tuple(a[0].shape), tuple(a[1].shape)))
             return _f(*a)
         monkeypatch.setattr(lf, name, spy)
     frames = TorchDecoder("cpu").decode_stream(get_stream("s96x64_ldp5"))
     assert len(frames) == 5
-    one = [("deblock_luma_vertical", (1, 64, 96)),
-           ("deblock_chroma_vertical", (2, 32, 48)),
-           ("deblock_luma_vertical", (1, 96, 64)),
-           ("deblock_chroma_vertical", (2, 48, 32)),
-           ("sao_apply", (1, 64, 96)), ("sao_apply", (2, 32, 48))]
-    assert [c[:2] for c in calls] == one * 5
-    # the horizontal pass hands over transposed views, not copies
-    assert all(not c[2] for c in calls[2:4])
+    one = [("deblock_planes", (1, 64, 96), (2, 32, 48)),
+           ("deblock_planes_ref", (1, 64, 96), (2, 32, 48)),
+           ("sao_apply", (1, 64, 96), (1, 1, 2)),
+           ("sao_apply", (2, 32, 48), (2, 1, 2))]
+    assert calls == one * 5

@@ -333,6 +333,31 @@ def test_deblock_kernels_match_plain(cuda, seed, plane, layout):
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("shape", [(2, 72, 136), (1, 40, 8), (1, 8, 40),
+                                   (2, 1080, 1920), (1, 2160, 3840)])
+def test_deblock_planes_kernel_matches_plain(cuda, shape, layout):
+    """Both directions of a batch's luma [F,H,W] and chroma [2F,H/2,W/2]
+    in ONE launch, torch.equal to deblock_planes_ref on the same tensors,
+    the inputs unchanged: small planes with partial tiles, planes with no
+    edge in one direction, 1080p (chroma 540 rows) and 4K."""
+    c = fc.deblock_planes_case(np.random.default_rng(shape[1]), *shape)
+    luma, chroma = (fc.layouts(c[k], cuda)[layout]
+                    for k in ("luma", "chroma"))
+    fp = {k: torch.from_numpy(v).to(cuda) for k, v in c.items()
+          if k not in ("luma", "chroma")}
+    before = _build.LAUNCHES["deblock"]
+    got = lf.deblock_planes(luma, chroma, fp)
+    assert _build.LAUNCHES["deblock"] == before + 1
+    want = lf.deblock_planes_ref(luma, chroma, fp)
+    torch.cuda.synchronize()
+    for g, w, k in zip(got, want, ("luma", "chroma")):
+        assert torch.equal(g, w), k
+        assert not torch.equal(w, fc.layouts(c[k], cuda)[layout]), k
+    assert np.array_equal(luma.cpu().numpy(), c["luma"])
+    assert np.array_equal(chroma.cpu().numpy(), c["chroma"])
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("plane", ["luma", "chroma"])
 @pytest.mark.parametrize("ctb", [64, 32, 16])
 def test_sao_kernel_matches_plain(cuda, ctb, plane, layout):
