@@ -11,7 +11,14 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    once) and links them, timed.
 3. kernels vs plain: each grouped kernel against its plain torch version on
    the card, torch.equal, over sweeps of sizes, modes and MVs (to 300 px
-   outside the picture), each sweep packed as one multi-group launch; the
+   outside the picture), each sweep packed as one multi-group launch (K1:
+   every size, DST, transform skip, bypass, scale_m, int16 and int32
+   levels, qp 0..51, saturating levels, TU counts that leave partial
+   tiles; the MC kernel with both epilogues: the 14-bit intermediates of
+   mc_blocks_grouped, and the finished samples of mc_pred_planes on 1080p
+   pictures, uni, bi and weighted, with pad rows, into fresh planes and
+   into two frames' segments of one tall plane that holds an earlier
+   prediction (testgen/kernel_cases.py)); the
    scan kernel against scan_packed_ref on random scans (every mode and
    size, every flag, unavailable references outside the plane, empty
    steps, flat and non-flat 32x32 edges; steps wider than the kernel's
@@ -71,14 +78,18 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    once a picture.
 13. per-kernel time against the plain version and the bound, over every
    call the main path made on one pass of s1080_ldp4 (each call of the
-   five kernels torch.equal to its plain version): the CUDA-event
+   five kernels torch.equal to its plain version; the MC row is the main
+   path's mc_pred_planes, the interpolation, combine and placement of a
+   picture in one launch, each call replayed into a zeroed copy of its
+   tall plane against mc_pred_planes_ref): the CUDA-event
    window of the calls (`ms`, host launch gaps included) and the kernel's
    own device time from torch.profiler (`device_ms`); beside them the plain
    version's window (`plain_ms`) and, but for the scan, its device time
    (`plain_device_ms`: every device operation it runs).  Each kernel's bound
    is the function's, from p265_tpu_torch.roofline over the census of
    s1080_ldp4 (not from the tensors the calls carry; the census's TUs of
-   each size and MC blocks of each geometry must equal the calls'), and
+   each size and MC blocks of each geometry must equal the calls'; the MC
+   kernel's bound is the MC stage's, since it computes the whole stage), and
    `bound_share` is the bound over the device time: above 1.05, which no
    card can give, fails.  The scan row: every main-path scan equal to its
    plain version, the window of scan_plane in turns with the plain version
@@ -205,22 +216,6 @@ def phase_build() -> None:
             log("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
 
-def _k1_inputs(rng, log2: int, n: int = 150, scale: bool = False,
-               dtype=np.int32) -> dict:
-    s = 1 << log2
-    lv = ((rng.random((n, s, s)) < 0.2)
-          * rng.integers(-200, 200, (n, s, s))).astype(dtype)
-    lv[:5] = rng.integers(-32768, 32768, (5, s, s))
-    dst = (rng.random(n) < 0.4) if log2 == 2 else np.zeros(n, bool)
-    tsk = ((rng.random(n) < 0.3) & ~dst) if log2 == 2 else np.zeros(n, bool)
-    f = dict(coeffs=lv, qp=np.arange(n, dtype=np.int32) % 52, is_dst=dst,
-             tskip=tsk, bypass=rng.random(n) < 0.15)
-    if scale:
-        f["scale_m"] = rng.integers(1, 256, (n, s, s)).astype(np.int32)
-        f["scale_m"][:8] = 255
-    return f
-
-
 def _mc_groups(rng, dev, far_px: int, n: int = 4096) -> list:
     """All six geometries, list 0 and a second list, on 1080p luma and
     chroma reference stacks: one launch of twelve groups."""
@@ -269,30 +264,34 @@ def phase_compare(errs: dict) -> None:
     from p265_tpu_torch.pipeline import wavefront as wf
     from p265_tpu_torch.testgen.scan_cases import (random_scan, wide_scan,
                                                    work_items)
+    from p265_tpu_torch.kernels import upload
+    from p265_tpu_torch.testgen import kernel_cases as kc
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
     for scale in (False, True):
         for dtype in (np.int32, np.int16):
-            groups = {log2: {k: torch.from_numpy(v).to(dev)
-                             for k, v in _k1_inputs(rng, log2, scale=scale,
-                                                    dtype=dtype).items()}
-                      for log2 in (2, 3, 4, 5)}
-            got = itransform.batch_residual_grouped(groups)
-            want = itransform.batch_residual_grouped_ref(groups)
-            torch.cuda.synchronize()
-            errs["itransform"] = max(errs["itransform"], _max_err(
-                got, want, f"itransform scale_m={scale} {dtype.__name__}"))
+            for n in (150, 2000, 9):
+                groups = upload(kc.residual_groups(rng, n, scale, dtype), dev)
+                got = itransform.batch_residual_grouped(groups)
+                want = itransform.batch_residual_grouped_ref(groups)
+                torch.cuda.synchronize()
+                errs["itransform"] = max(errs["itransform"], _max_err(
+                    got, want, f"itransform scale_m={scale} "
+                    f"{dtype.__name__} n={n}"))
     log("itransform == plain: log2 2..5 in one launch, with/without "
-        "scale_m, int32 and int16 levels, DST/tskip/bypass, qp 0..51, "
-        "levels to +-2^15, n=150 each")
+        "scale_m, int32 and int16 levels, DST/tskip/bypass, qp 0..51 (the "
+        "dequant's left shift included), levels to +-2^15, about 9, 150 "
+        "and 2000 TUs a size, each a partial last tile")
     for far in (8, 300):
         groups = _mc_groups(rng, dev, far)
         got = mc.mc_blocks_grouped(groups)
         want = mc.mc_blocks_grouped_ref(groups)
         torch.cuda.synchronize()
         errs["mc"] = max(errs["mc"], _max_err(got, want, f"mc far={far}"))
-    log("mc == plain: 6 geometries x 2 lists in one launch, n=4096 each, "
-        "MVs up to 8 px and up to 300 px beyond the picture")
+    log("mc (intermediates epilogue) == plain: 6 geometries x 2 lists in "
+        "one launch, n=4096 each, MVs up to 8 px and up to 300 px beyond "
+        "the picture")
+    _mc_pred_sweeps(rng, dev, errs)
     ctas, warps = wf.SCAN_SHAPE
     cases = [{}, {}, {}, dict(n_steps=4, per_size=560),
              dict(n_steps=64, one_a_step=True), dict(wide=True)]
@@ -336,6 +335,52 @@ def phase_compare(errs: dict) -> None:
         "earlier steps wrote; a split run [0, k) + [k, n) equal to one run "
         "in each")
     _filter_sweeps(rng, dev, errs)
+
+
+def _mc_pred_sweeps(rng, dev, errs: dict) -> None:
+    """The MC kernel with its samples epilogue (mc_pred_planes) against
+    mc_pred_planes_ref on 1080p pictures of every bucket with pad rows and
+    MVs to 300 px past the picture (testgen/kernel_cases.py pred_case):
+    uni, bi, and both with explicit weights (log2_wd 0..7, negative
+    weights and offsets); into fresh planes, and two frames into their
+    segments of one tall plane (batch_decode's layout) whose other samples
+    hold an earlier prediction that must stay as it was."""
+    import torch
+    from p265_tpu_torch.kernels import mc, upload
+    from p265_tpu_torch.pipeline.batch_decode import segment_rows
+    from p265_tpu_torch.pipeline.wavefront import GUARD
+    from p265_tpu_torch.testgen.kernel_cases import pred_case
+    seg_h, seg_hc = 1080 + GUARD, 540 + GUARD
+    for has_bi in (False, True):
+        for weighted in (False, True):
+            frames = [(upload(st, dev), upload(ar, dev), sh) for st, ar, sh
+                      in (pred_case(rng, 1080, 1920, has_bi, weighted)
+                          for _ in range(2))]
+            stacks, arrays, shapes = frames[0]
+            got = mc.mc_pred_planes(stacks, arrays, shapes, has_bi)
+            want = mc.mc_pred_planes_ref(stacks, arrays, shapes, has_bi)
+            torch.cuda.synchronize()
+            what = f"mc_pred_planes bi={has_bi} weighted={weighted}"
+            errs["mc"] = max(errs["mc"], _max_err(got, want, what))
+            tall = torch.from_numpy(rng.integers(-5, 300, (
+                2 * seg_h + 4 * seg_hc, 1920)).astype(np.int32)).to(dev)
+            a, b = tall.clone(), tall.clone()
+            for f, (stacks, arrays, shapes) in enumerate(frames):
+                rows = segment_rows(2, f, seg_h, seg_hc)
+                mc.mc_pred_planes(stacks, arrays, shapes, has_bi,
+                                  out=(a, rows))
+                mc.mc_pred_planes_ref(stacks, arrays, shapes, has_bi,
+                                      out=(b, rows))
+            torch.cuda.synchronize()
+            require(not torch.equal(a, tall), f"{what}: wrote nothing")
+            errs["mc"] = max(errs["mc"], _max_err(
+                [a], [b], f"{what}, two frames in a tall plane"))
+    log("mc (samples epilogue) == plain: mc_pred_planes at 1920x1080, "
+        "every bucket with 5 pad rows each, MVs to 300 px past the picture, "
+        "uni and bi (60% of the blocks), unweighted and explicitly weighted "
+        "(weights and offsets -128..127, log2_wd 0..7); fresh planes, and "
+        "two frames into the segments of one tall plane whose other "
+        "samples hold an earlier prediction")
 
 
 def _filter_sweeps(rng, dev, errs: dict) -> None:
@@ -918,17 +963,19 @@ FILTER_FUNCTIONS = {"deblock_planes": "deblock", "sao_apply": "sao"}
 
 
 def _capture_main_path(data: bytes) -> dict:
-    """Record the arguments of every grouped kernel call, every scan and
-    every filter call of one pass; a scan's plane is recorded as it stood
-    before the scan, a filter's planes with their strides.  A filter
-    call is recorded as ((function name, *arguments), keywords)."""
-    from p265_tpu_torch.kernels import itransform, mc
+    """Record the arguments of every K1 call, every MC call (the main
+    path's mc_pred_planes, which writes into the batch's tall plane), every
+    scan and every filter call of one pass; a scan's plane is recorded as
+    it stood before the scan, a filter's planes with their strides.  A
+    filter call is recorded as ((function name, *arguments), keywords)."""
+    from p265_tpu_torch.kernels import itransform
     from p265_tpu_torch.kernels import loopfilter as lf
+    from p265_tpu_torch.pipeline import batch_decode as bd
     from p265_tpu_torch.pipeline import wavefront as wf
     from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
     calls = {k: [] for k in KERNELS}
     patched = [(itransform, "batch_residual_grouped", "itransform"),
-               (mc, "mc_blocks_grouped", "mc"), (wf, "scan_plane", "scan"),
+               (bd, "mc_pred_planes", "mc"), (wf, "scan_plane", "scan"),
                *((lf, fn, k) for fn, k in FILTER_FUNCTIONS.items())]
     orig = [(m, fn, getattr(m, fn)) for m, fn, _ in patched]
 
@@ -1025,18 +1072,42 @@ def _census_matches(pics: list, calls: dict) -> None:
             if f["coeffs"].shape[0]:
                 got_tu[log2] = got_tu.get(log2, 0) + f["coeffs"].shape[0]
     for a, _ in calls["mc"]:
-        for refs, pos, ridx, mv, block, taps in a[0]:
-            got_mc[taps, block] = got_mc.get((taps, block), 0) + pos.shape[0]
+        for key, n in _mc_call_blocks(*a[:4]).items():
+            k = (8 if key[0] == "y" else 4, key[1])
+            got_mc[k] = got_mc.get(k, 0) + n
     require(got_tu == want_tu, f"census TUs {want_tu}, K1 calls {got_tu}")
     require(got_mc == {k: n for k, n in want_mc.items() if n},
             f"census MC blocks {want_mc}, K2 calls {got_mc}")
 
 
-def _launched(name: str, groups) -> bool:
-    """Whether a grouped K1 or K2 call launches (some group has a row)."""
+def _mc_call_blocks(stacks, arrays, shapes, has_bi) -> dict:
+    """{(plane, block, list): blocks} that an mc_pred_planes call
+    interpolates: every block but the pad rows in list 0, the ones that
+    read list 1 in list 1."""
+    out = {}
+    for c, plane in enumerate(("y", "cb", "cr")):
+        for block, d in arrays["y" if c == 0 else "c"].items():
+            real = d["pos"][:, 0] < shapes[c][0]
+            out[plane, block, 0] = int(real.sum())
+            if has_bi:
+                out[plane, block, 1] = int((real & d["has1"]).sum())
+    return out
+
+
+def _launched(name: str, args) -> bool:
+    """Whether a K1 or MC call launches (some group has a row)."""
     if name == "itransform":
-        return any(f["coeffs"].shape[0] for f in groups.values())
-    return any(g[1].shape[0] for g in groups)
+        return any(f["coeffs"].shape[0] for f in args[0].values())
+    return any(d["pos"].shape[0] for grp in args[1].values()
+               for d in grp.values())
+
+
+def _fresh_out(k: dict) -> dict:
+    """An MC call's keywords with a zeroed copy of its destination, so that
+    the kernel and its plain version write into planes of their own."""
+    import torch
+    plane, rows = k["out"]
+    return dict(k, out=(torch.zeros_like(plane), rows))
 
 
 def _scan_row(calls: list, launches: dict, sharded: dict, dag: dict,
@@ -1135,18 +1206,24 @@ def phase_timing(launches: dict, sharded: dict, dag: dict, errs: dict,
     pairs = {"itransform": (itransform.batch_residual_grouped,
                             itransform.batch_residual_grouped_ref,
                             "itransform_grouped_kernel"),
-             "mc": (mc.mc_blocks_grouped, mc.mc_blocks_grouped_ref,
+             "mc": (mc.mc_pred_planes, mc.mc_pred_planes_ref,
                     "mc_grouped_kernel"),
              "deblock": (filter_kernel, filter_plain, "deblock_tiles"),
              "sao": (filter_kernel, filter_plain, "sao_tiles")}
     rows = []
     for name, (kern, plain, symbol) in pairs.items():
         cl = [(a, k) for a, k in calls[name]
-              if name in FILTERS or _launched(name, a[0])]
+              if name in FILTERS or _launched(name, a)]
         require(len(cl) == KERNELS[name][2], f"{len(cl)} {name} launches "
                 f"in one pass, expected {KERNELS[name][2]}")
         for a, k in cl:
-            got, want = kern(*a, **k), plain(*a, **k)
+            if name == "mc":   # the whole tall plane each writes into
+                kg, kw = _fresh_out(k), _fresh_out(k)
+                kern(*a, **kg)
+                plain(*a, **kw)
+                got, want = [kg["out"][0]], [kw["out"][0]]
+            else:
+                got, want = kern(*a, **k), plain(*a, **k)
             if name == "sao":
                 got, want = [got], [want]
             errs[name] = max(errs[name], _max_err(

@@ -6,42 +6,55 @@
 // (pallas_batch_residual), and also covers what that kernel left to XLA:
 // 4x4 TUs with the DST and transform skip, and scaling lists (scale_m).
 //
-// What bounds it on Hopper: bytes.  Every sample reads a 2-byte int16
-// level (plus 4 bytes of scale_m with a scaling list) and writes a 4-byte
-// int32 residual: 12.4 M samples a 1080p pass, ~75 MB, ~22 us at
-// 3.35 TB/s.  A 1-D inverse transform of length s costs s/2 int32
-// multiply-adds per output in the even/odd (partial butterfly) form used
-// here, half of the direct product: ~250 M a pass, ~15 us on the CUDA
-// cores (132 SMs x 64 int32 lanes x 1.98 GHz), under the bytes.  The first
-// version took 20-40 us per launch, launched once per TU size and call
-// site (28 launches a pass), read int32 levels that a separate device op
-// had widened, and spent s multiply-adds per output.  So this version:
-// - takes a table of groups (one per TU size) as a kernel parameter and
-//   gives each CTA a tile of 1024 samples of one size (1 TU of 32x32, 4 of
-//   16x16, 16 of 8x8, 64 of 4x4), so all sizes of a call site share one
-//   launch and every CTA has the same work;
-// - reads the int16 levels as the host packs them (int32 is taken too);
-// - loads the size's DCT, the DST and levelScale once per CTA into shared
-//   memory, from the wrapper's tables (the kernel holds no copy of them);
-// - computes both 1-D stages as even/odd pairs: output i and s-1-i of a
-//   column (or row) share the even-row and odd-row partial sums, because
-//   DCT row k is symmetric for even k and antisymmetric for odd k.  This
-//   is the same integer sum as the direct product, regrouped.  The 4x4 DST
-//   has no such symmetry and keeps the direct product.
+// What bounds it on Hopper: the int32 lanes and the bytes, about equally.
+// A 1-D inverse transform of
+// length s costs s/2 multiply-adds an output in the even/odd (partial
+// butterfly) form used here: output i and s-1-i of a column (or row) share
+// the even-row and odd-row partial sums, because DCT row k is symmetric for
+// even k and antisymmetric for odd k (the same integer sum as the direct
+// product, regrouped; the 4x4 DST has no such symmetry and keeps the direct
+// product).  That is ~266 M multiply-adds a 1080p pass, ~16 us on 132 SMs x
+// 64 int32 lanes, against ~50 MB of levels in and residuals out (~15 us at
+// 3.35 TB/s).  The version before this one read two shared-memory operands
+// for every multiply-add (the DCT entry and the sample: a warp's shared load
+// is one wavefront a clock, so it ran at a quarter of the lanes), copied its
+// size's whole DCT from global memory into every CTA, and ran each CTA
+// through one 1024-sample tile with nothing in flight across its barriers.
+// So this version:
+// - takes a table of groups (one per TU size) as a kernel parameter; each
+//   CTA walks a run of consecutive 1024-sample tiles of one size (1 TU of
+//   32x32, 4 of 16x16, 16 of 8x8, 64 of 4x4), so the grid is one wave of
+//   as many CTAs as the SMs hold, however many TUs a call site has;
+// - stages the next tile's int16 (or int32) levels and its scale_m with
+//   16-byte cp.async into the other half of a double buffer while the
+//   current tile computes, and the next tile's qp and flags into registers;
+// - blocks both stages in registers: a thread owns the output pair (p,
+//   s-1-p) of 4 adjacent columns in stage 1 and of 4 adjacent rows in stage
+//   2, and keeps that pair's DCT column in registers, read once a CTA from
+//   the wrapper's table (the kernel holds no copy of the spec's tables);
+//   each 16-byte shared load of 4 dequantized (or stage-1) values then
+//   feeds 4 multiply-adds, and the threads of a warp that work on the same
+//   4 columns (rows) read the same 16 bytes, one broadcast;
 // - keeps the dequantized block, the stage-1 output and the residual in
-//   shared memory (rows padded to s+1 ints, so the row pass is free of
-//   bank conflicts) and reads levels and writes residuals coalesced.
+//   shared memory (rows padded to s+4 ints: 16-byte aligned, and the
+//   stage-1 stores of a warp's 8 rows fall on distinct banks) and reads
+//   levels and writes residuals 16 bytes a thread, coalesced;
+// - dequantizes each sample once (transform skip on the flat matrix) and
+//   finishes transform-skip and bypass TUs in that pass.
 // The tensor cores are not used: their integer path takes int8 operands,
-// and the dequantized levels (16 bits) and DCT entries (8 bits signed) would
-// need a split into limbs with int32 recombination for a kernel whose
-// bound is bytes, not operations.
+// so the 16-bit dequantized levels would need a split into limbs (the
+// reference's _limb_matmul) with int32 recombination, and the int32 lanes
+// do not set this kernel's pace (its device time is several times its
+// operation bound; PERF.md).
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 1024;   // samples per CTA
+constexpr int kThreads = 128;
+constexpr int kTile = 1024;   // samples a tile
+constexpr int kTileTus = 64;  // TUs of a tile of 4x4 TUs, the most
 constexpr int kBitDepth = 8;
 constexpr int kShift2 = 20 - kBitDepth;
 constexpr int kMaxGroups = 4;
@@ -49,28 +62,68 @@ constexpr int kTableCols = 10;
 // consts: [DCT 4x4][DCT 8x8][DCT 16x16][DCT 32x32][DST 4x4][levelScale 6]
 constexpr int kDstOff = 16 + 64 + 256 + 1024;
 constexpr int kLsOff = kDstOff + 16;
-constexpr int kSmemInts = 3200;
+// TU flags in shared memory
+constexpr int kDst = 1, kTskip = 2, kBypass = 4;
 
 struct ItGroup {
-  const void* levels;       // [n,s,s] int16 or int32
+  const void* levels;       // [n,s,s] int16 or int32, 16-byte aligned
   const int32_t* qp;        // [n]
   const uint8_t* is_dst;    // [n] bool, or null: no DST
   const uint8_t* tskip;     // [n] bool
   const uint8_t* bypass;    // [n] bool, or null
-  const int32_t* scale_m;   // [n,s,s], or null: flat 16
+  const int32_t* scale_m;   // [n,s,s], 16-byte aligned, or null: flat 16
   int64_t out;              // element offset of the group's [n,s,s] output
   int n, log2, wide;        // wide: levels are int32
-  int first_tile;           // first CTA of the group
+  int first_cta;            // first CTA of the group
 };
 
 struct ItParams {
   ItGroup g[kMaxGroups];
-  int n_groups;
+  int n_groups, tiles_per_cta;
   const int32_t* consts;
+};
+
+template <int LOG2>
+struct Geo {
+  static constexpr int S = 1 << LOG2;
+  static constexpr int SS = S * S;
+  static constexpr int TPB = kTile / SS;      // TUs a tile
+  static constexpr int P = S == 4 ? 4 : S + 4;   // row pitch, ints
+  static constexpr int BLK = S * P;           // ints a TU
+  static constexpr int H2 = S / 2, Q = S / 4;
+};
+// the largest block of a tile: 16 TUs of 8 rows of 12 ints
+constexpr int kBlockInts = 1536;
+static_assert(Geo<2>::TPB * Geo<2>::BLK <= kBlockInts &&
+                  Geo<3>::TPB * Geo<3>::BLK <= kBlockInts &&
+                  Geo<4>::TPB * Geo<4>::BLK <= kBlockInts &&
+                  Geo<5>::TPB * Geo<5>::BLK <= kBlockInts,
+              "itransform tile exceeds its shared block");
+
+struct ItSmem {
+  int4 lv[2][kTile / 4];    // staged levels (int16 pairs or int32)
+  int4 sm[2][kTile / 4];    // staged scale_m
+  int4 d[kBlockInts / 4];   // dequantized block, then the residual
+  int4 t[kBlockInts / 4];   // stage-1 output
+  int qp[2][kTileTus], fl[2][kTileTus];
+  int ls[8];                // levelScale
 };
 
 __device__ __forceinline__ int clip16(int v) {
   return min(max(v, -32768), 32767);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* g) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(g));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Spec dequant ((c * m * ls << qp/6) + (1 << (bd - 1))) >> bd, staged in
@@ -92,165 +145,255 @@ __device__ __forceinline__ int dequant(int level, int m, int qp, int bd,
   return clip16(d);
 }
 
-__device__ __forceinline__ int load_level(const ItGroup& gr, int64_t i) {
-  return gr.wide ? static_cast<const int32_t*>(gr.levels)[i]
-                 : static_cast<const int16_t*>(gr.levels)[i];
-}
-
 __host__ __device__ constexpr int dct_off(int log2) {
   return log2 == 2 ? 0 : log2 == 3 ? 16 : log2 == 4 ? 80 : 336;
 }
 
+// the levels (and scale_m) of tile `tile` into half h, by cp.async
 template <int LOG2>
-struct Geo {
-  static constexpr int S = 1 << LOG2;
-  static constexpr int SS = S * S;
-  static constexpr int P = S + 1;          // padded row
-  static constexpr int TPB = kTile / SS;   // TUs per CTA
-  static constexpr int INTS = SS + 16 + 8 + 2 * TPB + 2 * TPB * S * P;
-  static_assert(INTS <= kSmemInts, "itransform tile exceeds shared memory");
-};
+__device__ __forceinline__ void stage_tile(const ItGroup& g, int tile, int h,
+                                           ItSmem& sm) {
+  using C = Geo<LOG2>;
+  const int tu0 = tile * C::TPB, nt = min(C::TPB, g.n - tu0);
+  const int64_t e0 = static_cast<int64_t>(tu0) * C::SS;
+  const int esz = g.wide ? 4 : 2;
+  const char* lv = static_cast<const char*>(g.levels) + e0 * esz;
+  for (int c = threadIdx.x; c < nt * C::SS * esz / 16; c += kThreads)
+    cp_async16(&sm.lv[h][c], lv + 16 * c);
+  if (g.scale_m) {
+    const char* sc = reinterpret_cast<const char*>(g.scale_m + e0);
+    for (int c = threadIdx.x; c < nt * C::SS / 4; c += kThreads)
+      cp_async16(&sm.sm[h][c], sc + 16 * c);
+  }
+}
+
+// qp and flags of TU threadIdx.x of tile `tile` (loads left in flight)
+template <int LOG2>
+__device__ __forceinline__ void tile_records(const ItGroup& g, int tile,
+                                             int& qp, int& fl) {
+  using C = Geo<LOG2>;
+  const int u = tile * C::TPB + static_cast<int>(threadIdx.x);
+  if (static_cast<int>(threadIdx.x) < C::TPB && u < g.n) {
+    qp = g.qp[u];
+    fl = (LOG2 == 2 && g.is_dst && g.is_dst[u] ? kDst : 0) |
+         (LOG2 == 2 && g.tskip[u] ? kTskip : 0) |
+         (g.bypass && g.bypass[u] ? kBypass : 0);
+  }
+}
 
 template <int LOG2>
-__device__ __forceinline__ void it_tile(const ItGroup& gr,
-                                        const int32_t* __restrict__ consts,
-                                        int tile, int* smem,
-                                        int32_t* __restrict__ out) {
+__device__ __forceinline__ void it_cta(const ItGroup& g,
+                                       const int32_t* __restrict__ consts,
+                                       int cta, int per_cta, ItSmem& sm,
+                                       int32_t* __restrict__ out) {
   using C = Geo<LOG2>;
-  constexpr int S = C::S, SS = C::SS, P = C::P, TPB = C::TPB, H2 = S / 2;
+  constexpr int S = C::S, SS = C::SS, TPB = C::TPB, P = C::P, BLK = C::BLK;
+  constexpr int H2 = C::H2, Q = C::Q;
   constexpr int BD = kBitDepth + LOG2 - 5;
   constexpr int RND2 = 1 << (kShift2 - 1);
-
-  int* mat = smem;           // [S][S] DCT, mat[k*S + i] = M[k][i]
-  int* dst = mat + SS;       // [4][4] DST
-  int* ls = dst + 16;        // [6] levelScale (8 with padding)
-  int* tq = ls + 8;          // [TPB] qp
-  int* tf = tq + TPB;        // [TPB] flags: 1 DST, 2 tskip, 4 bypass
-  int* d = tf + TPB;         // [TPB][S][P] dequantized, then the residual
-  int* t = d + TPB * S * P;  // [TPB][S][P] stage-1 output
-
   const int tid = threadIdx.x;
-  const int tu0 = tile * TPB;
-  const int nt = min(TPB, gr.n - tu0);   // TUs of this tile
-  const int64_t g0 = static_cast<int64_t>(tu0) * SS;
+  const int tiles = (g.n + TPB - 1) / TPB;
+  const int t0 = cta * per_cta, t1 = min(t0 + per_cta, tiles);
+  int* d = reinterpret_cast<int*>(sm.d);
+  int* tb = reinterpret_cast<int*>(sm.t);
+  if (tid < 6) sm.ls[tid] = consts[kLsOff + tid];
 
-  constexpr int DCT = dct_off(LOG2);
-  for (int i = tid; i < SS; i += kThreads) mat[i] = consts[DCT + i];
-  if (tid < 16) dst[tid] = consts[kDstOff + tid];
-  if (tid < 6) ls[tid] = consts[kLsOff + tid];
-  if (tid < nt) {
-    const int u = tu0 + tid;
-    tq[tid] = gr.qp[u];
-    tf[tid] = (LOG2 == 2 && gr.is_dst && gr.is_dst[u] ? 1 : 0) |
-              (LOG2 == 2 && gr.tskip[u] ? 2 : 0) |
-              (gr.bypass && gr.bypass[u] ? 4 : 0);
-  }
-  __syncthreads();
-
-  for (int e = tid; e < nt * SS; e += kThreads) {
-    const int u = e / SS, k = e % SS;
-    const int m = gr.scale_m ? gr.scale_m[g0 + e] : 16;
-    d[u * S * P + (k / S) * P + k % S] =
-        dequant(load_level(gr, g0 + e), m, tq[u], BD, ls);
-  }
-  __syncthreads();
-
-  // stage 1, columns: t[i][j] = clip((sum_k M[k][i] d[k][j] + 64) >> 7),
-  // outputs i and S-1-i of column j from the even-k and odd-k sums
-  for (int q = tid; q < nt * SS / 2; q += kThreads) {
-    const int j = q % S, i = (q / S) % H2, u = q / (S * H2);
-    const int* db = d + u * S * P + j;
-    int o0, o1;
-    if (LOG2 == 2 && (tf[u] & 1)) {
-      o0 = o1 = 0;
+  // this thread's output pair (p, S-1-p) in both stages (kThreads is a
+  // multiple of S/2) and its coefficients: M[k][p]; for 4x4 also
+  // M[k][3-p] and the DST's columns p and 3-p
+  const int p = tid % H2;
+  int cf[S], cb[4], da[4], db[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        o0 += dst[k * 4 + i] * db[k * P];
-        o1 += dst[k * 4 + 3 - i] * db[k * P];
-      }
-    } else {
-      int ev = 0, od = 0;
+  for (int k = 0; k < S; ++k) cf[k] = consts[dct_off(LOG2) + k * S + p];
+  if (LOG2 == 2) {
 #pragma unroll
-      for (int k = 0; k < S; k += 2) {
-        ev += mat[k * S + i] * db[k * P];
-        od += mat[(k + 1) * S + i] * db[(k + 1) * P];
-      }
-      o0 = ev + od;
-      o1 = ev - od;
+    for (int k = 0; k < 4; ++k) {
+      cb[k] = consts[k * 4 + 3 - p];
+      da[k] = consts[kDstOff + k * 4 + p];
+      db[k] = consts[kDstOff + k * 4 + 3 - p];
     }
-    int* tb = t + u * S * P + j;
-    tb[i * P] = clip16((o0 + 64) >> 7);
-    tb[(S - 1 - i) * P] = clip16((o1 + 64) >> 7);
   }
-  __syncthreads();
 
-  // stage 2, rows: r[i][j] = clip((sum_k t[i][k] M[k][j] + 2048) >> 12),
-  // outputs j and S-1-j of row i, into d
-  for (int q = tid; q < nt * SS / 2; q += kThreads) {
-    const int j = q % H2, i = (q / H2) % S, u = q / (S * H2);
-    const int* tb = t + u * S * P + i * P;
-    int o0, o1;
-    if (LOG2 == 2 && (tf[u] & 1)) {
-      o0 = o1 = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        o0 += tb[k] * dst[k * 4 + j];
-        o1 += tb[k] * dst[k * 4 + 3 - j];
-      }
-    } else {
-      int ev = 0, od = 0;
-#pragma unroll
-      for (int k = 0; k < S; k += 2) {
-        ev += tb[k] * mat[k * S + j];
-        od += tb[k + 1] * mat[(k + 1) * S + j];
-      }
-      o0 = ev + od;
-      o1 = ev - od;
-    }
-    int* rb = d + u * S * P + i * P;
-    rb[j] = clip16((o0 + RND2) >> kShift2);
-    rb[S - 1 - j] = clip16((o1 + RND2) >> kShift2);
+  int nq = 0, nf = 0;   // the next tile's record of TU tid
+  if (t0 < t1) {
+    stage_tile<LOG2>(g, t0, 0, sm);
+    tile_records<LOG2>(g, t0, nq, nf);
+    if (tid < TPB) sm.qp[0][tid] = nq, sm.fl[0][tid] = nf;
   }
-  __syncthreads();
-
-  // coalesced write; transform skip (always on the flat dequant, even with
-  // a scaling list) and bypass (the levels are the residual) per TU
-  int32_t* o = out + gr.out + g0;
-  for (int e = tid; e < nt * SS; e += kThreads) {
-    const int u = e / SS, k = e % SS;
-    int r = d[u * S * P + (k / S) * P + k % S];
-    if (tf[u] & 2) {
-      const int df = dequant(load_level(gr, g0 + e), 16, tq[u], BD, ls);
-      r = clip16((df * 128 + RND2) >> kShift2);
+  cp_async_commit();
+  for (int t = t0; t < t1; ++t) {
+    const int cur = (t - t0) & 1, nxt = cur ^ 1;
+    const bool more = t + 1 < t1;
+    if (more) {
+      stage_tile<LOG2>(g, t + 1, nxt, sm);
+      tile_records<LOG2>(g, t + 1, nq, nf);
     }
-    if (tf[u] & 4) r = load_level(gr, g0 + e);
-    o[e] = r;
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // tile t's levels and records; the last copy-out done
+
+    const int tu0 = t * TPB, nt = min(TPB, g.n - tu0);
+    // dequant, 4 samples of a row a step; transform skip (always on the
+    // flat dequant, even with a scaling list) and bypass (the levels are
+    // the residual) are final here
+    for (int e = tid; e < nt * SS / 4; e += kThreads) {
+      const int u = e / (SS / 4), k4 = e % (SS / 4) * 4;
+      int lvl[4], m[4] = {16, 16, 16, 16};
+      if (g.wide) {
+        const int4 v = sm.lv[cur][e];
+        lvl[0] = v.x, lvl[1] = v.y, lvl[2] = v.z, lvl[3] = v.w;
+      } else {
+        const int16_t* v = reinterpret_cast<const int16_t*>(sm.lv[cur]) + 4 * e;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) lvl[i] = v[i];
+      }
+      if (g.scale_m) {
+        const int4 v = sm.sm[cur][e];
+        m[0] = v.x, m[1] = v.y, m[2] = v.z, m[3] = v.w;
+      }
+      const int qp = sm.qp[cur][u], fl = sm.fl[cur][u];
+      int r[4];
+      if (fl & kBypass) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) r[i] = lvl[i];
+      } else {
+        const bool ts = fl & kTskip;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int d = dequant(lvl[i], ts ? 16 : m[i], qp, BD, sm.ls);
+          r[i] = ts ? clip16((d * 128 + RND2) >> kShift2) : d;
+        }
+      }
+      *reinterpret_cast<int4*>(d + u * BLK + k4 / S * P + k4 % S) =
+          make_int4(r[0], r[1], r[2], r[3]);
+    }
+    __syncthreads();
+
+    // stage 1, columns: t[i][j] = clip((sum_k M[k][i] d[k][j] + 64) >> 7)
+    // for i = p and S-1-p, j = 4q..4q+3
+    for (int e = tid; e < nt * H2 * Q; e += kThreads) {
+      const int q = e / H2 % Q, u = e / (H2 * Q);
+      if (sm.fl[cur][u] & (kTskip | kBypass)) continue;
+      const int* db0 = d + u * BLK + 4 * q;
+      int o0[4] = {0, 0, 0, 0}, o1[4] = {0, 0, 0, 0};
+      if (LOG2 == 2) {
+        const bool dst = sm.fl[cur][u] & kDst;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int4 v = *reinterpret_cast<const int4*>(db0 + k * P);
+          const int a = dst ? da[k] : cf[k], b = dst ? db[k] : cb[k];
+          o0[0] += a * v.x, o0[1] += a * v.y, o0[2] += a * v.z, o0[3] += a * v.w;
+          o1[0] += b * v.x, o1[1] += b * v.y, o1[2] += b * v.z, o1[3] += b * v.w;
+        }
+      } else {
+        int ev[4] = {0, 0, 0, 0}, od[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          const int4 v = *reinterpret_cast<const int4*>(db0 + k * P);
+          if (k & 1) {
+            od[0] += cf[k] * v.x, od[1] += cf[k] * v.y;
+            od[2] += cf[k] * v.z, od[3] += cf[k] * v.w;
+          } else {
+            ev[0] += cf[k] * v.x, ev[1] += cf[k] * v.y;
+            ev[2] += cf[k] * v.z, ev[3] += cf[k] * v.w;
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o0[c] = ev[c] + od[c], o1[c] = ev[c] - od[c];
+      }
+      int* r0 = tb + u * BLK + p * P + 4 * q;
+      int* r1 = tb + u * BLK + (S - 1 - p) * P + 4 * q;
+      *reinterpret_cast<int4*>(r0) =
+          make_int4(clip16((o0[0] + 64) >> 7), clip16((o0[1] + 64) >> 7),
+                    clip16((o0[2] + 64) >> 7), clip16((o0[3] + 64) >> 7));
+      *reinterpret_cast<int4*>(r1) =
+          make_int4(clip16((o1[0] + 64) >> 7), clip16((o1[1] + 64) >> 7),
+                    clip16((o1[2] + 64) >> 7), clip16((o1[3] + 64) >> 7));
+    }
+    __syncthreads();
+
+    // stage 2, rows: r[i][j] = clip((sum_k t[i][k] M[k][j] + 2048) >> 12)
+    // for j = p and S-1-p, i = 4q..4q+3, into d
+    for (int e = tid; e < nt * H2 * Q; e += kThreads) {
+      const int q = e / H2 % Q, u = e / (H2 * Q);
+      if (sm.fl[cur][u] & (kTskip | kBypass)) continue;
+      const int* tr = tb + u * BLK + 4 * q * P;
+      int o0[4] = {0, 0, 0, 0}, o1[4] = {0, 0, 0, 0};
+      if (LOG2 == 2) {
+        const bool dst = sm.fl[cur][u] & kDst;
+        int a[4], b[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          a[k] = dst ? da[k] : cf[k], b[k] = dst ? db[k] : cb[k];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int4 v = *reinterpret_cast<const int4*>(tr + c * P);
+          o0[c] = v.x * a[0] + v.y * a[1] + v.z * a[2] + v.w * a[3];
+          o1[c] = v.x * b[0] + v.y * b[1] + v.z * b[2] + v.w * b[3];
+        }
+      } else {
+        int ev[4] = {0, 0, 0, 0}, od[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int m4 = 0; m4 < Q; ++m4) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int4 v = *reinterpret_cast<const int4*>(tr + c * P + 4 * m4);
+            ev[c] += v.x * cf[4 * m4] + v.z * cf[4 * m4 + 2];
+            od[c] += v.y * cf[4 * m4 + 1] + v.w * cf[4 * m4 + 3];
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o0[c] = ev[c] + od[c], o1[c] = ev[c] - od[c];
+      }
+      int* rb = d + u * BLK + 4 * q * P;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        rb[c * P + p] = clip16((o0[c] + RND2) >> kShift2);
+        rb[c * P + S - 1 - p] = clip16((o1[c] + RND2) >> kShift2);
+      }
+    }
+    __syncthreads();
+
+    // the residuals out, 16 bytes a thread
+    int32_t* o = out + g.out + static_cast<int64_t>(tu0) * SS;
+    for (int e = tid; e < nt * SS / 4; e += kThreads) {
+      const int u = e / (SS / 4), k4 = e % (SS / 4) * 4;
+      *reinterpret_cast<int4*>(o + 4 * e) =
+          *reinterpret_cast<const int4*>(d + u * BLK + k4 / S * P + k4 % S);
+    }
+    if (more && tid < TPB) sm.qp[nxt][tid] = nq, sm.fl[nxt][tid] = nf;
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 itransform_grouped_kernel(const __grid_constant__ ItParams p,
                           int32_t* __restrict__ out) {
-  __shared__ int smem[kSmemInts];
+  __shared__ ItSmem sm;
   int gi = 0;   // the last group that starts at or before this CTA
   for (int i = 1; i < p.n_groups; ++i)
-    if (static_cast<int>(blockIdx.x) >= p.g[i].first_tile) gi = i;
+    if (static_cast<int>(blockIdx.x) >= p.g[i].first_cta) gi = i;
   const ItGroup& gr = p.g[gi];
-  const int tile = static_cast<int>(blockIdx.x) - gr.first_tile;
+  const int cta = static_cast<int>(blockIdx.x) - gr.first_cta;
+  const int per = p.tiles_per_cta;
   switch (gr.log2) {   // uniform across the CTA
-    case 2: it_tile<2>(gr, p.consts, tile, smem, out); break;
-    case 3: it_tile<3>(gr, p.consts, tile, smem, out); break;
-    case 4: it_tile<4>(gr, p.consts, tile, smem, out); break;
-    case 5: it_tile<5>(gr, p.consts, tile, smem, out); break;
+    case 2: it_cta<2>(gr, p.consts, cta, per, sm, out); break;
+    case 3: it_cta<3>(gr, p.consts, cta, per, sm, out); break;
+    case 4: it_cta<4>(gr, p.consts, cta, per, sm, out); break;
+    case 5: it_cta<5>(gr, p.consts, cta, per, sm, out); break;
     default: break;
   }
 }
 
 }  // namespace
 
+// CTAs of `kernel` that the current device holds at once (common.cu)
+cudaError_t p265_resident_ctas(const void* kernel, int threads, int smem,
+                               int* slots);
+
 // table: n_groups rows of kTableCols int64 (host memory):
-//   levels, qp, is_dst|0, tskip, bypass|0, scale_m|0 (device pointers),
-//   out offset, n, log2, wide.  consts: the device tables laid out as above.
+//   levels, qp, is_dst|0, tskip, bypass|0, scale_m|0 (device pointers;
+//   levels and scale_m 16-byte aligned), out offset, n, log2, wide.
+//   consts: the device tables laid out as above.
 extern "C" int p265_itransform_grouped(const int64_t* table, int n_groups,
                                        const int32_t* consts, int32_t* out,
                                        cudaStream_t stream) {
@@ -259,7 +402,7 @@ extern "C" int p265_itransform_grouped(const int64_t* table, int n_groups,
   ItParams p{};
   p.n_groups = n_groups;
   p.consts = consts;
-  int tiles = 0;
+  int tiles[kMaxGroups], total = 0;
   for (int i = 0; i < n_groups; ++i) {
     const int64_t* t = table + static_cast<int64_t>(i) * kTableCols;
     ItGroup& g = p.g[i];
@@ -273,13 +416,28 @@ extern "C" int p265_itransform_grouped(const int64_t* table, int n_groups,
     g.n = static_cast<int>(t[7]);
     g.log2 = static_cast<int>(t[8]);
     g.wide = static_cast<int>(t[9]);
-    if (g.log2 < 2 || g.log2 > 5 || g.n < 0)
+    if (g.log2 < 2 || g.log2 > 5 || g.n < 0 || t[0] % 16 != 0 ||
+        t[5] % 16 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
-    g.first_tile = tiles;
     const int tpb = kTile >> (2 * g.log2);
-    tiles += (g.n + tpb - 1) / tpb;
+    tiles[i] = (g.n + tpb - 1) / tpb;
+    total += tiles[i];
   }
-  if (tiles == 0) return static_cast<int>(cudaErrorInvalidValue);
-  itransform_grouped_kernel<<<tiles, kThreads, 0, stream>>>(p, out);
+  if (total == 0) return static_cast<int>(cudaErrorInvalidValue);
+  // enough tiles a CTA that the grid is one wave of as many CTAs as the
+  // SMs hold at once: a CTA's later tiles load while its earlier ones
+  // compute, and no partial second wave trails the first
+  int slots = 0;
+  cudaError_t e = p265_resident_ctas(
+      reinterpret_cast<const void*>(itransform_grouped_kernel), kThreads, 0,
+      &slots);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  p.tiles_per_cta = std::max(1, (total + slots - 1) / slots);
+  int ctas = 0;
+  for (int i = 0; i < n_groups; ++i) {
+    p.g[i].first_cta = ctas;
+    ctas += (tiles[i] + p.tiles_per_cta - 1) / p.tiles_per_cta;
+  }
+  itransform_grouped_kernel<<<ctas, kThreads, 0, stream>>>(p, out);
   return static_cast<int>(cudaGetLastError());
 }

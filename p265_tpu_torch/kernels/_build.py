@@ -42,8 +42,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # host group table, n_groups, device tables, out, stream
     "p265_itransform_grouped": [_P, _I, _P, _P, _P],
-    # host group table, n_groups, host luma / chroma filters, out, stream
-    "p265_mc_grouped": [_P, _I, _P, _P, _P, _P],
+    # host group table, n_groups, host luma / chroma filters, epilogue,
+    # stream
+    "p265_mc_grouped": [_P, _I, _P, _P, _I, _P],
     # host bucket table, n_buckets, device starts, stride, k0, k1, plane,
     # pw, barrier_only, host angle table, stream
     "p265_scan": [_P, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P],

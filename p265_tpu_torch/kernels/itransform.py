@@ -124,6 +124,12 @@ def _check(t, name, dtypes, shape, device):
     return t.contiguous()
 
 
+def _aligned(t):
+    """t, or a copy of it that starts on 16 bytes (the kernel stages levels
+    and scale_m by 16-byte cp.async)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def batch_residual_grouped(groups: dict) -> dict:
     """Residuals of TUs of several sizes: {log2: fields} -> {log2: [n,s,s]
     int32}, views of one flat buffer.
@@ -140,6 +146,10 @@ def batch_residual_grouped(groups: dict) -> dict:
         return batch_residual_grouped_ref(groups)
     if dev.type != "cuda":
         raise ValueError(f"batch_residual: no kernel for {dev}")
+    return _grouped_kernel(groups, dev)
+
+
+def _grouped_kernel(groups: dict, dev) -> dict:
     i32, b8 = (torch.int32,), (torch.bool,)
     table = np.zeros((len(groups), 10), np.int64)
     alive, views, off = [], {}, 0
@@ -147,14 +157,15 @@ def batch_residual_grouped(groups: dict) -> dict:
         if log2 not in (2, 3, 4, 5):
             raise ValueError(f"batch_residual: log2 {log2} not in 2..5")
         n, s = f["coeffs"].shape[0], 1 << log2
-        lv = _check(f["coeffs"], "coeffs", (torch.int16, torch.int32),
-                    (n, s, s), dev)
+        lv = _aligned(_check(f["coeffs"], "coeffs",
+                             (torch.int16, torch.int32), (n, s, s), dev))
         ts = [_check(f["qp"], "qp", i32, (n,), dev),
               _check(f["tskip"], "tskip", b8, (n,), dev)]
         opt = [None if f.get(k) is None else _check(f[k], k, dt, shape, dev)
                for k, dt, shape in (("is_dst", b8, (n,)),
                                     ("bypass", b8, (n,)),
                                     ("scale_m", i32, (n, s, s)))]
+        opt[2] = _aligned(opt[2])
         alive += [lv, *ts, *opt]
         ptr = [0 if t is None else t.data_ptr() for t in opt]
         table[row] = (lv.data_ptr(), ts[0].data_ptr(), ptr[0],

@@ -236,6 +236,9 @@ GEOMETRIES = ((16, 8), (8, 8), (4, 8), (8, 4), (4, 4), (2, 4))
 MAX_GROUPS = 32   # groups of one launch (csrc/mc.cu kMaxGroups)
 _LUMA = np.ascontiguousarray(LUMA_FILTER, np.int32)
 _CHROMA = np.ascontiguousarray(CHROMA_FILTER, np.int32)
+# csrc/mc.cu's epilogues: the 14-bit intermediates of one list a group;
+# the finished samples of uni- or bi-predicted pictures in their plane
+_RAW, _UNI, _BI = 0, 1, 2
 
 
 def _checked(t, name, dt, shape, dev):
@@ -246,13 +249,39 @@ def _checked(t, name, dt, shape, dev):
     return t.contiguous()
 
 
+def _refs_row(refs, block, taps, dev) -> tuple:
+    """(refs, its table columns R, H, W) after the checks of a group."""
+    if (block, taps) not in GEOMETRIES or refs.dim() != 3 or min(
+            refs.shape) == 0:
+        raise ValueError(f"mc_blocks: bad refs {tuple(refs.shape)} or "
+                         f"geometry {(block, taps)}")
+    refs = _checked(refs, "refs", torch.uint8, None, dev)
+    return refs, refs.shape
+
+
+def _launch(table: list, epilogue: int, dev) -> None:
+    """One launch of csrc/mc.cu over the group rows of `table`."""
+    if len(table) > MAX_GROUPS:
+        raise ValueError(f"mc_blocks: {len(table)} groups, at most "
+                         f"{MAX_GROUPS} in one launch")
+    rows = np.array(table, np.int64)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.p265_mc_grouped(
+            rows.ctypes.data, len(table), _LUMA.ctypes.data,
+            _CHROMA.ctypes.data, epilogue,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "mc")
+    _build.LAUNCHES["mc"] += 1
+
+
 def mc_blocks_grouped(groups) -> list:
     """MC intermediates of several block groups: each group (refs, pos,
     ridx, mv, block, taps) as mc_blocks_ref takes it -> one [n, block,
     block] int32 view per group, cut from one flat buffer.
 
     A CPU tensor takes the plain version; CUDA tensors launch csrc/mc.cu
-    once for all groups."""
+    once for all groups, with its intermediates epilogue."""
     groups = list(groups)
     if not groups:
         return []
@@ -261,39 +290,33 @@ def mc_blocks_grouped(groups) -> list:
         return mc_blocks_grouped_ref(groups)
     if dev.type != "cuda":
         raise ValueError(f"mc_blocks: no kernel for {dev}")
-    if len(groups) > MAX_GROUPS:
-        raise ValueError(f"mc_blocks: {len(groups)} groups, at most "
-                         f"{MAX_GROUPS} in one launch")
-    table = np.zeros((len(groups), 12), np.int64)
-    alive, views, off = [], [], 0
-    for row, (refs, pos, ridx, mv, block, taps) in enumerate(groups):
+    return _blocks_kernel(groups, dev)
+
+
+def _blocks_kernel(groups, dev) -> list:
+    off, views, fields = 0, [], []
+    for refs, pos, ridx, mv, block, taps in groups:
+        refs, (R, H, W) = _refs_row(refs, block, taps, dev)
         n = pos.shape[0]
-        if (block, taps) not in GEOMETRIES or refs.dim() != 3 or min(
-                refs.shape) == 0:
-            raise ValueError(f"mc_blocks: bad refs {tuple(refs.shape)} or "
-                             f"geometry {(block, taps)}")
-        refs = _checked(refs, "refs", torch.uint8, None, dev)
-        pos = _checked(pos, "pos", torch.int32, (n, 2), dev)
-        ridx = _checked(ridx, "ridx", torch.int32, (n,), dev)
-        mv = _checked(mv, "mv", torch.int32, (n, 2), dev)
-        alive += [refs, pos, ridx, mv]
-        R, H, W = refs.shape
-        vec = W % 4 == 0 and refs.data_ptr() % 4 == 0
-        table[row] = (refs.data_ptr(), pos.data_ptr(), mv.data_ptr(),
-                      ridx.data_ptr(), off, R, H, W, n, block, taps, vec)
+        f = (_checked(pos, "pos", torch.int32, (n, 2), dev),
+             _checked(mv, "mv", torch.int32, (n, 2), dev),
+             _checked(ridx, "ridx", torch.int32, (n,), dev))
+        fields.append((refs, *f, off, R, H, W, n, block, taps))
         views.append((off, n, block))
         off += n * block * block
     out = torch.empty(off, dtype=torch.int32, device=dev)
     if off:
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            err = lib.p265_mc_grouped(
-                table.ctypes.data, len(groups), _LUMA.ctypes.data,
-                _CHROMA.ctypes.data, out.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "mc")
-        _build.LAUNCHES["mc"] += 1
+        _launch([(refs.data_ptr(), pos.data_ptr(), mv.data_ptr(), 0,
+                  ridx.data_ptr(), 0, 0, 0, out.data_ptr() + 4 * o, R, H, W,
+                  n, block, taps, _word_loads(refs), 0, 0, 0)
+                 for refs, pos, mv, ridx, o, R, H, W, n, block, taps
+                 in fields], _RAW, dev)
     return [out[o:o + n * b * b].view(n, b, b) for o, n, b in views]
+
+
+def _word_loads(refs) -> bool:
+    """Whether the kernel may load the reference rows as aligned words."""
+    return refs.shape[2] % 4 == 0 and refs.data_ptr() % 4 == 0
 
 
 def mc_blocks(refs, pos, ridx, mv, block: int, taps: int):
@@ -332,53 +355,105 @@ def uses_l1(arrays) -> bool:
                for a in grp.values())
 
 
-def mc_pred_planes(stacks, arrays, shapes, has_bi: bool) -> list:
-    """One picture's MC prediction planes [H, W] int32 (y, cb, cr), with
-    the interpolation of every block of every plane and list in ONE
-    mc_blocks_grouped launch.
+def _destinations(shapes, out, dev) -> list:
+    """The planes mc_pred_planes writes: fresh zero planes, or the segments
+    of out = (plane [rows, pitch] int32, first row of each component)."""
+    if out is None:
+        return [torch.zeros(s, dtype=torch.int32, device=dev)
+                for s in shapes]
+    plane, rows = out
+    if (plane.dtype != torch.int32 or plane.dim() != 2
+            or plane.device != dev or not plane.is_contiguous()):
+        raise ValueError("mc_pred_planes: out must be a contiguous 2-D "
+                         f"int32 plane on {dev}")
+    segs = [plane[r:r + h, :w] for r, (h, w) in zip(rows, shapes)]
+    if any(r < 0 or s.shape != tuple(sh)
+           for r, s, sh in zip(rows, segs, shapes)):
+        raise ValueError(f"mc_pred_planes: segments {shapes} at rows "
+                         f"{rows} do not fit the plane {tuple(plane.shape)}")
+    return segs
+
+
+def mc_pred_planes_ref(stacks, arrays, shapes, has_bi: bool,
+                       out=None) -> list:
+    """Plain version of mc_pred_planes: mc_blocks_grouped_ref over every
+    (plane, bucket, list), combine(), then the samples of the blocks
+    scattered into the planes; pad blocks, which lie below the plane, and
+    any sample outside it are dropped."""
+    dev = stacks[0].device
+    planes = _destinations(shapes, out, dev)
+    for c, (stack, (H, W), plane) in enumerate(zip(stacks, shapes, planes)):
+        grp, taps = ("y", 8) if c == 0 else ("c", 4)
+        for block, d in sorted(arrays[grp].items(), reverse=True):
+            if d["pos"].shape[0] == 0:
+                continue
+            pred = mc_blocks_grouped_ref(
+                [(stack, d["pos"], d[f"r{lx}"], d[f"mv{lx}"], block, taps)
+                 for lx in ((0, 1) if has_bi else (0,))])
+            samp = combine(pred[0], pred[1] if has_bi else None, d["has1"],
+                           tuple(d[f"wp_{c}"][:, k] for k in range(5)))
+            ar = torch.arange(block, device=dev)
+            ys = (d["pos"][:, 0, None] + ar).long()
+            xs = (d["pos"][:, 1, None] + ar).long()
+            keep = (((ys >= 0) & (ys < H))[:, :, None]
+                    & ((xs >= 0) & (xs < W))[:, None, :])
+            plane[ys[:, :, None].expand_as(keep)[keep],
+                  xs[:, None, :].expand_as(keep)[keep]] = samp[keep]
+    return planes
+
+
+def mc_pred_planes(stacks, arrays, shapes, has_bi: bool, out=None) -> list:
+    """One picture's MC prediction planes (y, cb, cr): every block of every
+    plane interpolated, combined and placed by ONE launch of csrc/mc.cu.
 
     stacks (y, cb, cr) uint8 reference stacks [R,H,W] (device-resident DPB
     slabs); arrays {"y": {block: fields}, "c": {...}} as mc_arrays_padded
     gives them, as tensors on the same device; shapes the three plane
-    shapes.  has_bi False skips the second list.  Pad blocks (pos = (H,
-    0)) scatter into a one-sample guard past the plane that is cut off:
-    torch has no dropping scatter, and this keeps the scatter free of a
-    host sync."""
-    keys, groups = [], []
-    for c, stack in enumerate(stacks):
+    shapes.  has_bi False skips the second list.  out None: the planes are
+    new [H, W] int32 tensors, 0 where no block lies.  out = (plane, rows):
+    the samples go into the [H, W] segments of the contiguous int32 `plane`
+    that start at rows[c] (the tall prediction plane of a batch), which
+    are returned as views; samples no block covers keep what the plane
+    held, so the caller hands segments of zeros.  Pad blocks (pos = (H,
+    0)) are skipped.  A CPU tensor takes the plain version,
+    mc_pred_planes_ref; CUDA tensors launch the kernel, which combines the
+    lists in registers and stores the samples in place: no torch operation
+    follows it."""
+    dev = stacks[0].device
+    if dev.type == "cpu":
+        return mc_pred_planes_ref(stacks, arrays, shapes, has_bi, out)
+    if dev.type != "cuda":
+        raise ValueError(f"mc_pred_planes: no kernel for {dev}")
+    return _pred_planes_kernel(stacks, arrays, shapes, has_bi, out)
+
+
+def _pred_planes_kernel(stacks, arrays, shapes, has_bi, out) -> list:
+    dev = stacks[0].device
+    planes = _destinations(shapes, out, dev)
+    table, alive = [], []
+    for c, (stack, plane) in enumerate(zip(stacks, planes)):
         grp, taps = ("y", 8) if c == 0 else ("c", 4)
         for block, d in arrays[grp].items():
-            if d["pos"].shape[0] == 0:
+            n = d["pos"].shape[0]
+            if n == 0:
                 continue
-            for lx in ((0, 1) if has_bi else (0,)):
-                keys.append((c, block, lx))
-                groups.append((stack, d["pos"], d[f"r{lx}"], d[f"mv{lx}"],
-                               block, taps))
-    preds = dict(zip(keys, mc_blocks_grouped(groups)))
-    planes = []
-    for c, (H, W) in enumerate(shapes):
-        buckets = arrays["y" if c == 0 else "c"]
-        dev = stacks[c].device
-        idx_parts, val_parts = [], []
-        for block in sorted(buckets, reverse=True):
-            if (c, block, 0) not in preds:
-                continue
-            d = buckets[block]
-            pos = d["pos"]
-            wp = tuple(d[f"wp_{c}"][:, k] for k in range(5))
-            samp = combine(preds[c, block, 0], preds.get((c, block, 1)),
-                           d["has1"], wp)
-            ar = torch.arange(block, device=dev)
-            flat = ((pos[:, 0, None, None] + ar[None, :, None]) * W
-                    + pos[:, 1, None, None] + ar[None, None, :]).reshape(-1)
-            idx_parts.append(flat)
-            val_parts.append(samp.reshape(-1))
-        plane = torch.zeros(H * W + 1, dtype=torch.int32, device=dev)
-        if idx_parts:
-            idx = torch.cat(idx_parts).long()
-            idx = torch.where((idx >= 0) & (idx < H * W), idx, H * W)
-            plane[idx] = torch.cat(val_parts)
-        planes.append(plane[:H * W].reshape(H, W))
+            refs, (R, H, W) = _refs_row(stack, block, taps, dev)
+            f = [_checked(d["pos"], "pos", torch.int32, (n, 2), dev),
+                 _checked(d["mv0"], "mv0", torch.int32, (n, 2), dev),
+                 _checked(d["r0"], "r0", torch.int32, (n,), dev),
+                 _checked(d[f"wp_{c}"], "wp", torch.int32, (n, 5), dev)]
+            if has_bi:
+                f += [_checked(d["mv1"], "mv1", torch.int32, (n, 2), dev),
+                      _checked(d["r1"], "r1", torch.int32, (n,), dev),
+                      _checked(d["has1"], "has1", torch.bool, (n,), dev)]
+            alive += [refs, *f]
+            p = [t.data_ptr() for t in f] + [0, 0, 0]
+            table.append((refs.data_ptr(), p[0], p[1], p[4], p[2], p[5],
+                          p[6], p[3], plane.data_ptr(), R, H, W, n, block,
+                          taps, _word_loads(refs), plane.stride(0),
+                          *plane.shape))
+    if table:
+        _launch(table, _BI if has_bi else _UNI, dev)
     return planes
 
 

@@ -5,8 +5,9 @@ NumPy) packs the tensor plans into arrays; `decode_batch_planes` (device)
 reproduces `_decode_batch_jit` step for step:
 
 1. MC from device-resident uint8 reference slabs (kernels/mc.py), one
-   kernel launch per frame, then the PCM samples scattered over the
-   prediction (PCM TUs are pred-only inter TUs);
+   kernel launch per frame that writes the finished samples into the
+   frame's segments of the tall prediction plane, then the PCM samples
+   scattered over the prediction (PCM TUs are pred-only inter TUs);
 2. the residuals of every inter TU ("hoisted" out of the scan: they have
    no in-picture dependencies), one kernel launch for all TU sizes, with
    one scatter, then init = clip(pred + residual);
@@ -114,19 +115,25 @@ def decode_batch_planes(batch: dict, refs, device,
                       itu=batch["itu"], tu=tu), device)
     t1 = time.perf_counter()
 
-    # 1. MC prediction planes at each frame's segment offsets, one grouped
-    #    MC launch per frame; has_bi comes from the host arrays, so no sync;
-    #    then the PCM samples, one scatter over them
+    # 1. MC prediction planes at each frame's segment offsets: one MC
+    #    launch per frame writes the frame's samples straight into the tall
+    #    plane; has_bi comes from the host arrays, so no sync; then the PCM
+    #    samples, one scatter over them.  MC owns its frames' segments:
+    #    where an attached prediction lies under them (no decoder path
+    #    attaches one to a frame with device MC), they are zeroed first
     pred = attached_pred(*batch["attached"], shape, device)
+    attached = pred is not None
     if pred is None and (dev["mc"] is not None or dev["pcm"] is not None):
         pred = torch.zeros(shape, dtype=torch.int32, device=device)
     if dev["mc"] is not None:
         shapes = ((H, W), (Hc, Wc), (Hc, Wc))
         for f, (fmc, rf) in enumerate(zip(dev["mc"], refs)):
-            planes = mc_pred_planes(rf, fmc, shapes, uses_l1(batch["mc"][f]))
             offs = segment_rows(F, f, seg_h, seg_hc)
-            for oy, (h, w), p in zip(offs, shapes, planes):
-                pred[oy:oy + h, :w] = p
+            if attached:
+                for oy, (h, w) in zip(offs, shapes):
+                    pred[oy:oy + h, :w] = 0
+            mc_pred_planes(rf, fmc, shapes, uses_l1(batch["mc"][f]),
+                           out=(pred, offs))
     if dev["pcm"] is not None:
         idx, val = dev["pcm"]
         pred.view(-1)[idx] = val

@@ -21,10 +21,9 @@ and intra TUs (the scan's), each counted in one class: bypass, transform
 skip, 4x4 DST or DCT; the intra TUs' prediction modes, smoothed references
 and available reference samples; the scan steps; the plane shapes.  The
 census is of the work the stream needs, whatever implements it; the
-calls of the main path carry the same TUs and blocks, but for one
-difference: a picture with any bi-predicted block interpolates its list-1
-group for every block (mc_pred_planes), so on such a picture the calls
-carry more list-1 blocks than the census counts.
+calls of the main path carry the same TUs and blocks (mc_pred_planes
+interpolates list 1 only for the blocks that read it, and skips pad
+rows).
 
 Rules of the count (`work(census)`; each stage and kernel is the function
 it computes, so a narrower or fused implementation does not move its own
@@ -57,9 +56,9 @@ bound):
   block; `sao` reads and writes each plane it filters and reads 6 bytes
   of parameters a CTB and plane; `fetch` moves the output planes over the
   host link.
-- Kernels: `itransform` (K1) is the residual stage; `mc` (K2) ends at the
-  14-bit intermediates: references and block records in, B^2 int16 a
-  block and list out, and the filter's operations; `scan` is the scan
+- Kernels: `itransform` (K1) is the residual stage; `mc` (K2) is the MC
+  stage, since it interpolates, combines and places the samples in one
+  launch (the 14-bit intermediates stay inside it); `scan` is the scan
   stage; `deblock` (the luma and chroma kernels, both directions) is the
   deblocking stage and `sao` the SAO stage: each filter kernel is the
   whole of its stage.
@@ -293,8 +292,10 @@ def scaling_work(log2s) -> Work:
 
 
 def mc_block_work(block: int, taps: int, n: int) -> Work:
-    """K2 over n blocks of one geometry and list, references not counted:
-    the block records in, the int16 intermediates out, the filter."""
+    """The MC filter over n blocks of one geometry and list, references not
+    counted: the block records in, the int16 intermediates out, the filter
+    (the work of mc_blocks_grouped; the MC stage keeps the intermediates
+    inside and writes samples)."""
     return Work(n * (4 + 4 + 1 + 2 * block * block),
                 n * taps * ((block + taps - 1) * block + block * block),
                 fp32=True)
@@ -312,15 +313,15 @@ def scan_work(log2: int, n: int, s: dict) -> Work:
 def picture_work(pic: dict) -> dict:
     """{stage or "k:" + kernel: Work} of one picture's census."""
     out = {k: Work(0, 0) for k in STAGES}
-    k2 = Work(sum(pic["ref_samples"]), 0, fp32=True)
-    inter = combine = 0     # K2's int16 outputs; the combine's adds
+    interp = Work(sum(pic["ref_samples"]), 0, fp32=True)
+    inter = combine = 0     # the filter's int16 outputs; the combine's adds
     for (plane, block, lx), n in pic["mc"].items():
-        k2 += mc_block_work(block, 8 if plane == "y" else 4, n)
+        interp += mc_block_work(block, 8 if plane == "y" else 4, n)
         inter += 2 * n * block * block
         combine += n * block * block if lx else 0
     # the MC stage keeps the intermediates inside and writes uint8 samples
-    out["mc"] = Work(k2.bytes - inter + sum(pic["pred_samples"]),
-                     k2.ops + combine, fp32=True)
+    out["mc"] = Work(interp.bytes - inter + sum(pic["pred_samples"]),
+                     interp.ops + combine, fp32=True)
     res = Work(0, 0)
     for log2, split in pic["tus"].items():
         for counts in split.values():
@@ -340,7 +341,7 @@ def picture_work(pic: dict) -> dict:
     out["sao"] = Work(sum(2 * b + 6 * pic["ctbs"] for b, on in
                           zip(plane_bytes, f["sao"]) if on), 0)
     out["fetch"] = Work(sum(plane_bytes), 0, link=True)
-    out["k:itransform"], out["k:mc"], out["k:scan"] = res, k2, scan
+    out["k:itransform"], out["k:mc"], out["k:scan"] = res, out["mc"], scan
     out["k:deblock"], out["k:sao"] = out["deblock"], out["sao"]
     return out
 

@@ -18,8 +18,9 @@ of each dispatch; then fps (best warm pass) and the warm spread.  On a
 stream with tiles or WPP it also times the parse alone (the port's native
 CTU parse, no reconstruction) with the host lanes (parse_workers()) and
 with one lane, best of 3 each, in turns.  --profile adds one more pass
-under torch.profiler: each kernel's device time and the device's idle
-share.  `run()` returns all of it as one record (report() prints it).
+under torch.profiler: each kernel's device time, in all and launch by
+launch, and the device's idle share; then a serial TorchDecoder pass under
+torch.profiler gives each stage's device time (bench.stage_profile).  `run()` returns all of it as one record (report() prints it).
 """
 from __future__ import annotations
 
@@ -218,8 +219,8 @@ KERNEL_SYMBOLS = {"itransform": "itransform_grouped_kernel",
 
 def profile_pass(data: bytes, device: str) -> dict:
     """One more pass under torch.profiler: device ms of each kernel of
-    the port (KERNEL_SYMBOLS) and of everything, wall ms and the device's
-    idle share."""
+    the port (KERNEL_SYMBOLS), in all and launch by launch (in launch
+    order), and of everything, wall ms and the device's idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -232,9 +233,14 @@ def profile_pass(data: bytes, device: str) -> dict:
     kernels = {k: sum(e.self_device_time_total for e in ev
                       if sym in e.key) / 1e3
                for k, sym in KERNEL_SYMBOLS.items()}
+    each = {k: [e.time_range.elapsed_us() / 1e3 for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA
+         and sym in e.name), key=lambda e: e.time_range.start)]
+        for k, sym in KERNEL_SYMBOLS.items()}
     wall = p["seconds"] * 1e3
     return dict(wall_ms=wall, device_ms=total, kernels_ms=kernels,
-                idle=1 - total / wall, ops=sum(e.count for e in ev))
+                launches_ms=each, idle=1 - total / wall,
+                ops=sum(e.count for e in ev))
 
 
 def run(name: str, n_warm: int = 2, device: str = "cuda",
@@ -310,6 +316,9 @@ def report(rec: dict) -> None:
             f"device {pr['device_ms']:.4f} ms over {pr['ops']} operations, "
             f"idle share {pr['idle']:.4f}; kernels (device ms) "
             + ", ".join(f"{k} {v:.4f}" for k, v in pr["kernels_ms"].items()))
+        log("  device ms of each launch: " + "; ".join(
+            f"{k} " + " ".join(f"{v:.4f}" for v in ms)
+            for k, ms in pr["launches_ms"].items()))
 
 
 def main(argv=None) -> int:
@@ -331,7 +340,15 @@ def main(argv=None) -> int:
                            text=True).stdout.strip())
     elif args.profile:
         ap.error("--profile needs a CUDA device")
-    report(run(args.name, args.n_warm, args.device, args.profile))
+    rec = run(args.name, args.n_warm, args.device, args.profile)
+    report(rec)
+    if args.profile:
+        from p265_tpu_torch.bench import stage_profile
+        from p265_tpu_torch.testgen.streams import get_stream
+        busy, _ = stage_profile(get_stream(args.name), args.device)
+        log(f"{args.name}, serial TorchDecoder pass under torch.profiler: "
+            "device ms of each stage's functions (bench.STAGE_FUNCTIONS) "
+            + ", ".join(f"{k} {v:.4f}" for k, v in busy.items()))
     return 0
 
 

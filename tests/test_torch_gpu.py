@@ -28,6 +28,7 @@ from p265_tpu_torch.plan.frame_plan import build_tensor_plan
 from p265_tpu_torch.shard.filters import sao_rows
 from p265_tpu_torch.testgen import conformance
 from p265_tpu_torch.testgen import filter_cases as fc
+from p265_tpu_torch.testgen import kernel_cases as kc
 from p265_tpu_torch.testgen.scan_cases import (random_scan, wide_scan,
                                                work_items)
 
@@ -149,6 +150,72 @@ def test_itransform_grouped_kernel_matches_plain(cuda):
         assert torch.equal(got[log2], want[log2]), log2
 
 
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("scale", [False, True])
+def test_itransform_kernel_partial_tiles_match_plain(cuda, dtype, scale):
+    """Every size in one launch with DST, transform skip, bypass, qp 0..51
+    (the dequant's left-shift branch included), saturating levels and
+    scale_m, at TU counts that leave a partial last tile
+    (testgen/kernel_cases.py residual_groups), and once more with
+    levels and scale_m that start off the 16-byte grid."""
+    rng = np.random.default_rng(int(scale) + 2 * (dtype == np.int32))
+    for n in (150, 9):
+        groups = upload(kc.residual_groups(rng, n, scale, dtype), cuda)
+        before = _build.LAUNCHES["itransform"]
+        got = itransform.batch_residual_grouped(groups)
+        assert _build.LAUNCHES["itransform"] == before + 1
+        want = itransform.batch_residual_grouped_ref(groups)
+        torch.cuda.synchronize()
+        for log2 in groups:
+            assert torch.equal(got[log2], want[log2]), (n, log2)
+    f = groups[3]
+    for k in ("coeffs", "scale_m"):
+        if k in f:
+            t = f[k]
+            flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+            f[k] = flat[1:].view(t.shape).copy_(t)
+    got = itransform.batch_residual_grouped({3: f})[3]
+    assert torch.equal(got, itransform.batch_residual_grouped_ref({3: f})[3])
+
+
+@pytest.mark.parametrize("kind", ["uni", "bi", "weighted_uni", "weighted_bi"])
+def test_mc_pred_planes_kernel_matches_plain(cuda, kind):
+    """The MC kernel with its samples epilogue (interpolation, combine and
+    placement in one launch) against mc_pred_planes_ref on 1080p pictures
+    (testgen/kernel_cases.py pred_case: every bucket, pad rows, MVs to
+    300 px past the picture; uni, bi, explicit weights with log2_wd 0..7
+    and negative weights and offsets): into fresh planes, and two frames
+    into their segments of one tall plane laid out as batch_decode does,
+    whose other samples hold an earlier prediction that must stay."""
+    from p265_tpu_torch.pipeline.batch_decode import segment_rows
+    rng = np.random.default_rng(len(kind))
+    has_bi, weighted = kind.endswith("bi"), kind.startswith("weighted")
+    frames = []
+    for _ in range(2):
+        stacks, arrays, shapes = kc.pred_case(rng, 1080, 1920, has_bi,
+                                              weighted)
+        frames.append((upload(stacks, cuda), upload(arrays, cuda), shapes))
+    stacks, arrays, shapes = frames[0]
+    before = _build.LAUNCHES["mc"]
+    got = mc.mc_pred_planes(stacks, arrays, shapes, has_bi)
+    assert _build.LAUNCHES["mc"] == before + 1
+    want = mc.mc_pred_planes_ref(stacks, arrays, shapes, has_bi)
+    torch.cuda.synchronize()
+    for c in range(3):
+        assert torch.equal(got[c], want[c]), c
+    seg_h, seg_hc = 1080 + wf.GUARD, 540 + wf.GUARD
+    tall = torch.from_numpy(rng.integers(-5, 300, (
+        2 * seg_h + 4 * seg_hc, 1920)).astype(np.int32)).to(cuda)
+    a, b = tall.clone(), tall.clone()
+    for f, (stacks, arrays, shapes) in enumerate(frames):
+        rows = segment_rows(2, f, seg_h, seg_hc)
+        mc.mc_pred_planes(stacks, arrays, shapes, has_bi, out=(a, rows))
+        mc.mc_pred_planes_ref(stacks, arrays, shapes, has_bi, out=(b, rows))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert not torch.equal(a, tall)
+
+
 def _gop(structure, seed, n=4, w=96, h=64, sps_kw=None, **pps_kw):
     sps = SPS(pic_width=w, pic_height=h, temporal_mvp_enabled=True,
               num_reorder_pics=2, max_dec_pic_buffering=5, **(sps_kw or {}))
@@ -192,7 +259,8 @@ def test_pipelined_decoder_on_cuda_matches_golden(cuda, name):
     _build.reset_launch_counts()
     got = PipelinedTorchDecoder(cuda).decode_stream(data)
     assert _build.LAUNCHES["itransform"] > 0
-    assert _build.LAUNCHES["mc"] > 0 or not any(g.plan.pus for g in gold)
+    # one MC launch a picture with inter PUs (a dispatch a picture)
+    assert _build.LAUNCHES["mc"] == sum(1 for g in gold if g.plan.pus)
     assert [f.poc for f in got] == [g.poc for g in gold]
     for f, g in zip(got, gold):
         for c in range(3):

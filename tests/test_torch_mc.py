@@ -3,9 +3,10 @@
 Interpolation (mc_blocks_ref, and the CPU paths of mc_blocks and of the
 grouped mc_blocks_grouped) against p265_tpu.kernels.mc._mc_blocks on its
 per-element clamped gather, the uni/bi/weighted combination against
-_combine, the prediction planes (with pad rows) against mc_pred_plane, and
-the NumPy copies of the host packing against the originals on a weighted
-RA plan.
+_combine, the prediction planes (with pad rows; fresh planes, and the
+segments of a tall plane as the batch path lays them out) against
+mc_pred_plane, the samples no block covers, and the NumPy copies of the
+host packing against the originals on a weighted RA plan.
 """
 import jax
 import jax.numpy as jnp
@@ -268,3 +269,155 @@ def test_build_inter_pred_device_none_without_pus_or_pcm(ra_wp):
     intra = next(g for g in gold if not g.plan.pus)
     assert mc.build_inter_pred_device(intra.plan, {}, "cpu") is None
     assert jmc.build_inter_pred_device(intra.plan, {}) is None
+
+
+def _gop_inter(structure, seed, **pps_kw):
+    """Golden decode of a 96x64 GOP: (frames by poc, inter frames)."""
+    sps = SPS(pic_width=96, pic_height=64, temporal_mvp_enabled=True,
+              num_reorder_pics=2, max_dec_pic_buffering=5)
+    pps = PPS(init_qp=32, sign_data_hiding=True, **pps_kw)
+    stream, _ = Encoder(sps, pps, qp=32, seed=seed).encode_sequence(
+        make_moving_sequence(96, 64, 5, seed=seed), structure=structure)
+    gold = GoldenDecoder().decode_stream(stream)
+    return {g.poc: g.planes for g in gold}, [g for g in gold if g.plan.pus]
+
+
+_JAX_PLANE = jax.jit(jmc.mc_pred_plane,
+                     static_argnames=("shape", "taps", "has_bi", "wp_key"))
+
+
+def _jax_planes(stacks, arrays, shapes, has_bi) -> list:
+    """The JAX package's mc_pred_plane of each component (numpy in)."""
+    return [np.asarray(_JAX_PLANE(
+        jnp.asarray(stacks[c]),
+        {b: {f: jnp.asarray(a) for f, a in d.items()}
+         for b, d in arrays[grp].items()}, shape=shapes[c], taps=taps,
+        has_bi=has_bi, wp_key=f"wp_{c}"))
+        for c, grp, taps in ((0, "y", 8), (1, "c", 4), (2, "c", 4))]
+
+
+def _torch_tree(tree):
+    return {k: _torch_tree(v) if isinstance(v, dict) else torch.from_numpy(v)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("kind", ["LDP", "RA", "WP_RA"])
+def test_mc_pred_planes_tall_plane_matches_jax(kind):
+    """The plain fused path (mc_pred_planes on CPU tensors with a tall
+    destination) writes every inter picture of a GOP into its segments of
+    one tall plane, laid out as batch_decode does: np.array_equal to the
+    JAX package's mc_pred_plane of each component placed at the same rows,
+    on uni (LDP), bi (RA) and weighted (WP_RA: weighted uni and bi)
+    pictures, with three pad rows a bucket; the rows between segments stay
+    as they were."""
+    from p265_tpu_torch.pipeline.batch_decode import segment_rows
+    from p265_tpu_torch.pipeline.wavefront import GUARD
+    seed, kw = {"LDP": (41, {}), "RA": (50, {}),
+                "WP_RA": (14, dict(weighted_pred=True,
+                                   weighted_bipred=True))}[kind]
+    by_poc, inter = _gop_inter(kind.removeprefix("WP_"), seed, **kw)
+    H, W = 64, 96
+    shapes = ((H, W), (H >> 1, W >> 1), (H >> 1, W >> 1))
+    F, seg_h, seg_hc = len(inter), H + GUARD, (H >> 1) + GUARD
+    tall = torch.full((F * seg_h + 2 * F * seg_hc, W), 7, dtype=torch.int32)
+    want = tall.numpy().copy()
+    for f, g in enumerate(inter):
+        pidx = _poc_index(g.plan)
+        pocs = sorted(pidx)
+        arrs = mc.mc_arrays_padded(g.plan, pidx, {
+            k: v + 3 for k, v in mc.mc_block_counts(g.plan).items()})
+        has_bi = mc.uses_l1(arrs)
+        stacks = [np.stack([by_poc[p][c] for p in pocs]).astype(np.uint8)
+                  for c in range(3)]
+        rows = segment_rows(F, f, seg_h, seg_hc)
+        for r, (h, w) in zip(rows, shapes):
+            tall[r:r + h, :w] = 0
+            want[r:r + h, :w] = 0
+        got = mc.mc_pred_planes([torch.from_numpy(s) for s in stacks],
+                                _torch_tree(arrs), shapes, has_bi,
+                                out=(tall, rows))
+        for r, (h, w), p, j in zip(rows, shapes, got,
+                                   _jax_planes(stacks, arrs, shapes, has_bi)):
+            want[r:r + h, :w] = j
+            assert p.data_ptr() == tall[r:r + h, :w].data_ptr()
+    assert kind == "LDP" or any(mc.uses_l1(mc.mc_arrays_padded(
+        g.plan, _poc_index(g.plan), mc.mc_block_counts(g.plan)))
+        for g in inter)
+    assert np.array_equal(tall.numpy(), want)
+
+
+@pytest.mark.parametrize("kind", ["uni", "bi", "weighted_uni",
+                                  "weighted_bi"])
+def test_mc_pred_planes_random_cases_match_jax(kind):
+    """testgen/kernel_cases.py pred_case pictures (every bucket, five pad
+    rows each, MVs to 300 px past the picture, explicit weights with
+    negative weights and offsets and log2_wd 0..7): the plain fused path
+    into fresh planes equals the JAX package's mc_pred_plane; no block
+    writes outside its own samples."""
+    from p265_tpu_torch.testgen.kernel_cases import pred_case
+    rng = np.random.default_rng(len(kind) + 100)
+    has_bi, weighted = kind.endswith("bi"), kind.startswith("weighted")
+    stacks, arrays, shapes = pred_case(rng, 64, 96, has_bi, weighted)
+    got = mc.mc_pred_planes([torch.from_numpy(s) for s in stacks],
+                            _torch_tree(arrays), shapes, has_bi)
+    for c, (p, j) in enumerate(zip(got, _jax_planes(stacks, arrays, shapes,
+                                                    has_bi))):
+        assert p.dtype == torch.int32 and p.shape == shapes[c]
+        assert np.array_equal(p.numpy(), j), c
+
+
+def test_mc_uncovered_samples_as_before(ra_wp, monkeypatch):
+    """Samples that no MC block covers come out as before MC wrote into
+    the tall plane: 0 in fresh planes, and in the batch path the MC
+    segments of a frame whose tensor plan carries an attached prediction
+    (a path no decoder takes) hold the MC planes alone, as when the old
+    path copied its zero-based planes over them: the prediction plane the
+    scan starts from, and the whole decode, equal those without the
+    attached prediction."""
+    from p265_tpu_torch.pipeline import batch_decode as bd
+    from p265_tpu_torch.pipeline.wavefront import GUARD
+    from p265_tpu_torch.plan.frame_plan import build_tensor_plan
+    gold, inter = ra_wp
+    by_poc = {g.poc: g.planes for g in gold}
+    # the picture with the most intra samples
+    g = min(inter, key=lambda g: sum(p.w * p.h for p in g.plan.pus))
+    plan = g.plan
+    pidx = _poc_index(plan)
+    pocs = sorted(pidx)
+    arrs = mc.mc_arrays_padded(plan, pidx, mc.mc_block_counts(plan))
+    stacks = tuple(torch.from_numpy(np.stack(
+        [by_poc[p][c] for p in pocs]).astype(np.uint8)) for c in range(3))
+    H, W = plan.sps.pic_height, plan.sps.pic_width
+    shapes = ((H, W), (H >> 1, W >> 1), (H >> 1, W >> 1))
+    fresh = mc.mc_pred_planes(stacks, _torch_tree(arrs), shapes,
+                              mc.uses_l1(arrs))
+    for c, p in enumerate(fresh):
+        cover = np.zeros(shapes[c], bool)
+        for b, d in arrs["y" if c == 0 else "c"].items():
+            for y, x in d["pos"]:
+                cover[y:y + b, x:x + b] = True
+        assert (~cover).any() and (p.numpy()[~cover] == 0).all(), c
+    rng = np.random.default_rng(5)
+    attached = [rng.integers(1, 256, s).astype(np.int32) for s in shapes]
+    runs, preds = [], []
+    run_scan = bd.run_scan
+
+    def spy(itu, fields, starts, n_steps, pred, *a, **k):
+        preds.append(pred.clone())
+        return run_scan(itu, fields, starts, n_steps, pred, *a, **k)
+
+    monkeypatch.setattr(bd, "run_scan", spy)
+    for pred in (None, attached):
+        tplan = build_tensor_plan(plan, skip_pred=pred is None,
+                                  pred_planes=pred)
+        assert (tplan.planes[0].inter_pred is None) == (pred is None)
+        batch = bd.build_batch([tplan], [plan], mc=[arrs])
+        runs.append(bd.decode_batch_planes(batch, [stacks], "cpu"))
+    assert torch.equal(preds[0], preds[1])
+    seg_h, seg_hc = H + GUARD, (H >> 1) + GUARD
+    for r, (h, w), p in zip(bd.segment_rows(1, 0, seg_h, seg_hc), shapes,
+                            fresh):
+        assert torch.equal(preds[0][r:r + h, :w], p)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert np.array_equal(runs[0][2][0].numpy(), g.planes[0])

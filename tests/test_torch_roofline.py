@@ -11,7 +11,8 @@ from p265_tpu.golden.decoder import GoldenDecoder as JaxGolden
 from p265_tpu.kernels.mc import mc_block_counts as jax_mc_block_counts
 from p265_tpu.plan.frame_plan import build_tensor_plan as jax_tensor_plan
 from p265_tpu_torch import roofline
-from p265_tpu_torch.kernels import itransform, mc
+from p265_tpu_torch.kernels import itransform
+from p265_tpu_torch.pipeline import batch_decode as bd
 from p265_tpu_torch.pipeline import wavefront as wf
 from p265_tpu_torch.pipeline.decoder import TorchDecoder
 from p265_tpu_torch.testgen.streams import get_stream
@@ -101,26 +102,26 @@ def test_census_equals_jax_package(censuses, name):
 
 def _captured_pass(name: str, monkeypatch) -> dict:
     """Per picture (one dispatch a picture, serial TorchDecoder on CPU
-    tensors) the arguments of every K1, K2 and scan call."""
+    tensors) the arguments of every K1, K2 (mc_pred_planes) and scan
+    call."""
     calls = []
-    orig = (itransform.batch_residual_grouped, mc.mc_blocks_grouped,
+    orig = (itransform.batch_residual_grouped, bd.mc_pred_planes,
             wf.scan_plane)
 
     def k1(groups):
         calls.append(("k1", groups))
         return orig[0](groups)
 
-    def k2(groups):
-        groups = list(groups)
-        calls.append(("k2", groups))
-        return orig[1](groups)
+    def k2(stacks, arrays, shapes, has_bi, out=None):
+        calls.append(("k2", (stacks, arrays, shapes, has_bi)))
+        return orig[1](stacks, arrays, shapes, has_bi, out)
 
     def scan(stacked, starts, n_steps, plane, after_step=None):
         calls.append(("scan", n_steps))
         return orig[2](stacked, starts, n_steps, plane, after_step)
 
     monkeypatch.setattr(itransform, "batch_residual_grouped", k1)
-    monkeypatch.setattr(mc, "mc_blocks_grouped", k2)
+    monkeypatch.setattr(bd, "mc_pred_planes", k2)
     monkeypatch.setattr(wf, "scan_plane", scan)
     per_pic, cur = [], None
     orig_run = TorchDecoder._run_recon_group
@@ -160,12 +161,30 @@ def _call_tus(groups_list) -> dict:
     return out
 
 
-def _call_windows(groups_list) -> list:
+def _call_groups(call) -> dict:
+    """{(plane, block, list): (refs, pos, ridx, mv, taps)} of the blocks an
+    mc_pred_planes call interpolates: all but the pad rows in list 0, the
+    ones that read list 1 in list 1."""
+    stacks, arrays, shapes, has_bi = call
+    out = {}
+    for c, plane in enumerate(roofline.PLANES):
+        for block, d in arrays["y" if c == 0 else "c"].items():
+            real = d["pos"][:, 0] < shapes[c][0]
+            for lx in ((0, 1) if has_bi else (0,)):
+                m = real & d["has1"] if lx else real
+                out[plane, block, lx] = (stacks[c], d["pos"][m],
+                                         d[f"r{lx}"][m], d[f"mv{lx}"][m],
+                                         8 if c == 0 else 4)
+    return out
+
+
+def _call_windows(calls) -> list:
     """Per plane (y, cb, cr) the distinct reference samples the K2 calls
     read, brute force: every window sample of every block, clamped."""
     stacks, seen = [], {}
-    for groups in groups_list:
-        for refs, pos, ridx, mv, block, taps in groups:
+    for call in calls:
+        for (_, block, _), (refs, pos, ridx, mv, taps) in _call_groups(
+                call).items():
             key = refs.data_ptr()
             if key not in seen:
                 seen[key] = len(stacks)
@@ -186,40 +205,23 @@ def _call_windows(groups_list) -> list:
 @pytest.mark.parametrize("name", STREAMS)
 def test_census_equals_the_kernel_calls(censuses, name, monkeypatch):
     """The TUs and blocks a CPU TorchDecoder pass hands to K1 and K2 equal
-    the census.  On a picture with a bi-predicted block the calls carry a
-    list-1 block for every block (mc_pred_planes interpolates list 1 for
-    the whole picture): there the census is not larger, and its list 0
-    equals the calls' first group of each geometry and plane."""
+    the census: K2 (mc_pred_planes) interpolates list 0 of every block but
+    the pad rows and list 1 of the bi-predicted ones, and reads the
+    census's reference samples, on bi-predicted pictures too."""
     passes = _captured_pass(name, monkeypatch)
     pics = censuses[name]
     assert [p for p, _ in passes] == [p["poc"] for p in pics]
     for (poc, calls), pic in zip(passes, pics):
         assert _call_tus(calls["k1"]) == pic["tus"], poc
         assert calls["scan"] == [pic["steps"]], poc
-        bi = any(n for (_, _, lx), n in pic["mc"].items() if lx == 1)
         got = {}
-        for groups in calls["k2"]:
-            # the stacks come y, cb, cr; a geometry's list 1 after its
-            # list 0
-            planes, lists = {}, {}
-            for refs, pos, ridx, mv, block, taps in groups:
-                if refs.data_ptr() not in planes:
-                    planes[refs.data_ptr()] = roofline.PLANES[len(planes)]
-                plane = planes[refs.data_ptr()]
-                lx = lists[plane, block] = lists.get((plane, block), -1) + 1
-                got[plane, block, lx] = (got.get((plane, block, lx), 0)
-                                         + pos.shape[0])
+        for call in calls["k2"]:
+            for key, (_, pos, _, _, _) in _call_groups(call).items():
+                got[key] = got.get(key, 0) + pos.shape[0]
         want = {k: n for k, n in pic["mc"].items() if n}
         windows = _call_windows(calls["k2"]) if calls["k2"] else [0, 0, 0]
-        if not bi:
-            assert got == want, poc
-            assert windows == pic["ref_samples"], poc
-        else:
-            assert {k: n for k, n in got.items() if k[2] == 0} == {
-                k: n for k, n in want.items() if k[2] == 0}, poc
-            assert all(got.get(k, 0) >= n for k, n in want.items()), poc
-            assert all(w >= c for w, c in zip(windows,
-                                              pic["ref_samples"])), poc
+        assert {k: n for k, n in got.items() if n} == want, poc
+        assert windows == pic["ref_samples"], poc
 
 
 def test_filter_kernels_are_their_stages(censuses):
@@ -269,13 +271,17 @@ def test_byte_and_operation_rules():
         + (256 * 4 + 4096 * 2) + (1024 * 4 + 32768 * 2)
     assert st["residual"] == k["itransform"] == roofline.Work(res_bytes,
                                                               res_ops)
-    # K2: per block and list 9 bytes of record and B^2 int16 out; the
-    # filter's taps * ((B+taps-1) B + B^2)
+    # the MC filter alone (mc_blocks_grouped): per block and list 9 bytes
+    # of record and B^2 int16 out; the filter's taps * ((B+taps-1) B + B^2)
     geo = [(16, 8), (8, 8), (4, 8)] + [(8, 4), (4, 4), (2, 4)] * 2
     k2_bytes = 1500 + 2 * sum(9 + 2 * b * b for b, _ in geo)
     k2_ops = 2 * sum(t * ((b + t - 1) * b + b * b) for b, t in geo)
-    assert k["mc"] == roofline.Work(k2_bytes, k2_ops, fp32=True)
-    assert st["mc"] == roofline.Work(
+    assert sum((roofline.mc_block_work(b, t, 2) for b, t in geo),
+               roofline.Work(1500, 0, fp32=True)) == roofline.Work(
+        k2_bytes, k2_ops, fp32=True)
+    # the MC stage, which K2 computes whole: references, records and
+    # samples; the filter plus the combine's add a list-1 sample
+    assert k["mc"] == st["mc"] == roofline.Work(
         1500 + 2 * 9 * len(geo) + 960,
         k2_ops + sum(b * b for b, _ in geo), fp32=True)
     # scan: per intra TU residual 2 s^2, output s^2, 6 bytes of record,
@@ -296,7 +302,8 @@ def test_byte_and_operation_rules():
         6 * 16 + 6 * 64 + 6 * 256 + 2 * 1024
     # two pictures: twice the work
     assert roofline.work([pic, pic])["kernels"]["mc"] == roofline.Work(
-        2 * k2_bytes, 2 * k2_ops, fp32=True)
+        2 * (1500 + 2 * 9 * len(geo) + 960),
+        2 * (k2_ops + sum(b * b for b, _ in geo)), fp32=True)
 
 
 def test_bound_and_peaks():
