@@ -77,7 +77,11 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    space axis launches the scan once a wavefront step, the stream axis
    once a picture.
 13. per-kernel time against the plain version and the bound, over every
-   call the main path made on one pass of s1080_ldp4 (each call of the
+   call the main path made on one pass of s1080_ldp4 (that pass's staged
+   trees, one a dispatch, read after the pass: every leaf on 16 bytes, a
+   view of its dispatch's one device buffer, and equal in dtype, shape and
+   values to the same leaf uploaded alone, kernels/staging.py per_leaf;
+   each call of the
    five kernels torch.equal to its plain version; the MC row is the main
    path's mc_pred_planes, the interpolation, combine and placement of a
    picture in one launch, each call replayed into a zeroed copy of its
@@ -99,7 +103,13 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    TUs the floor and the chain (device - floor).  The deblocking row
    counts its one launch a dispatch (both directions, luma and chroma),
    the SAO row luma and chroma.
-14. measuring modules: `python -m p265_tpu_torch.bench --golden DIR` as a
+14. upload: one s1080_ldp4 pass under torch.profiler
+   (run_config.profile_pass): its staging copies (one a dispatch) and
+   bytes, and the device ms of every host-to-device copy in the trace (at
+   most the reference's per-dtype buffers, REF_BUFFERS a dispatch); then
+   `python -m p265_tpu_torch.profile_pack s1080_ldp4` as a subprocess,
+   its one JSON line printed.
+15. measuring modules: `python -m p265_tpu_torch.bench --golden DIR` as a
    subprocess (s1080_ldp4 gated against golden, its s1080_ldp16
    steady-state row gated too, both goldens read from the workers' files;
    exactly one stdout line, JSON with metric, value > 0, unit and
@@ -264,14 +274,14 @@ def phase_compare(errs: dict) -> None:
     from p265_tpu_torch.pipeline import wavefront as wf
     from p265_tpu_torch.testgen.scan_cases import (random_scan, wide_scan,
                                                    work_items)
-    from p265_tpu_torch.kernels import upload
+    from p265_tpu_torch.kernels.staging import stage
     from p265_tpu_torch.testgen import kernel_cases as kc
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
     for scale in (False, True):
         for dtype in (np.int32, np.int16):
             for n in (150, 2000, 9):
-                groups = upload(kc.residual_groups(rng, n, scale, dtype), dev)
+                groups = stage(kc.residual_groups(rng, n, scale, dtype), dev)
                 got = itransform.batch_residual_grouped(groups)
                 want = itransform.batch_residual_grouped_ref(groups)
                 torch.cuda.synchronize()
@@ -346,14 +356,15 @@ def _mc_pred_sweeps(rng, dev, errs: dict) -> None:
     segments of one tall plane (batch_decode's layout) whose other samples
     hold an earlier prediction that must stay as it was."""
     import torch
-    from p265_tpu_torch.kernels import mc, upload
+    from p265_tpu_torch.kernels import mc
+    from p265_tpu_torch.kernels.staging import stage
     from p265_tpu_torch.pipeline.batch_decode import segment_rows
     from p265_tpu_torch.pipeline.wavefront import GUARD
     from p265_tpu_torch.testgen.kernel_cases import pred_case
     seg_h, seg_hc = 1080 + GUARD, 540 + GUARD
     for has_bi in (False, True):
         for weighted in (False, True):
-            frames = [(upload(st, dev), upload(ar, dev), sh) for st, ar, sh
+            frames = [(stage(st, dev), stage(ar, dev), sh) for st, ar, sh
                       in (pred_case(rng, 1080, 1920, has_bi, weighted)
                           for _ in range(2))]
             stacks, arrays, shapes = frames[0]
@@ -844,7 +855,7 @@ def phase_1080(jobs: dict) -> tuple:
 
 
 def start_goldens(tmp: str) -> tuple:
-    """The port's GoldenDecoder on s1080_ldp4 (phases 9 and 14), then on
+    """The port's GoldenDecoder on s1080_ldp4 (phases 9 and 15), then on
     every STREAMS stream, the longest first, in GOLDEN_WORKERS spawned
     processes; -> (pool, {name: AsyncResult of run_config.save_golden,
     which writes tmp/<name>.npz})."""
@@ -967,20 +978,28 @@ def _capture_main_path(data: bytes) -> dict:
     path's mc_pred_planes, which writes into the batch's tall plane), every
     scan and every filter call of one pass; a scan's plane is recorded as
     it stood before the scan, a filter's planes with their strides.  A
-    filter call is recorded as ((function name, *arguments), keywords)."""
-    from p265_tpu_torch.kernels import itransform
+    filter call is recorded as ((function name, *arguments), keywords).
+    calls["staged"]: per dispatch, the tree that stage() returned and the
+    same host tree copied leaf by leaf (staging.per_leaf) when it was
+    staged."""
+    from p265_tpu_torch.kernels import itransform, staging
     from p265_tpu_torch.kernels import loopfilter as lf
     from p265_tpu_torch.pipeline import batch_decode as bd
     from p265_tpu_torch.pipeline import wavefront as wf
     from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
-    calls = {k: [] for k in KERNELS}
+    calls = {k: [] for k in (*KERNELS, "staged")}
     patched = [(itransform, "batch_residual_grouped", "itransform"),
                (bd, "mc_pred_planes", "mc"), (wf, "scan_plane", "scan"),
+               (bd, "stage", "staged"),
                *((lf, fn, k) for fn, k in FILTER_FUNCTIONS.items())]
     orig = [(m, fn, getattr(m, fn)) for m, fn, _ in patched]
 
     def spy(fn, name, f0):
         def f(*a, **k):
+            if name == "staged":
+                out = f0(*a, **k)
+                calls[name].append((out, staging.per_leaf(a[0], a[1])))
+                return out
             if name == "scan":
                 calls[name].append(((*a[:3], a[3].clone()), k))
             elif name in FILTERS:
@@ -998,6 +1017,38 @@ def _capture_main_path(data: bytes) -> dict:
         for m, fn, f0 in orig:
             setattr(m, fn, f0)
     return calls
+
+
+def _check_staging(staged: list) -> None:
+    """The staged trees of one s1080_ldp4 pass, read after the pass: one
+    a dispatch, each leaf on the card, on 16 bytes, a view of its
+    dispatch's one buffer, and equal (dtype, shape, values) to the leaf
+    copied alone when it was staged, so no consumer wrote into it."""
+    import torch
+    from p265_tpu_torch.kernels import staging
+    require(len(staged) == N_FRAMES, f"{len(staged)} staged trees in one "
+            f"pass, expected {N_FRAMES}")
+    leaves = nbytes = 0
+    for i, (got, want) in enumerate(staged):
+        g, w = staging.leaves(got), staging.leaves(want)
+        require(len(g) == len(w), f"dispatch {i}: {len(g)} staged leaves "
+                f"for {len(w)}")
+        bufs = {t.untyped_storage().data_ptr() for t in g if t.numel()}
+        require(len(bufs) == 1, f"dispatch {i}: leaves in {len(bufs)} "
+                "device buffers")
+        for a, b in zip(g, w):
+            require(a.device.type == "cuda" and a.data_ptr() % 16 == 0
+                    and a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(a, b),
+                    f"dispatch {i}: a staged leaf {a.dtype} "
+                    f"{tuple(a.shape)} at {a.data_ptr() % 16} mod 16 "
+                    f"differs from its per-leaf copy {b.dtype} "
+                    f"{tuple(b.shape)}")
+        leaves += len(g)
+        nbytes += sum(t.numel() * t.element_size() for t in g)
+    log(f"staging: {len(staged)} dispatches, {leaves} leaves, {nbytes} "
+        "bytes of leaves, every leaf on 16 bytes and equal after the pass "
+        "to its per-leaf upload at the wire dtypes")
 
 
 def _time_calls(fn, calls, reps: int = 10, warm: int = 2) -> float:
@@ -1188,6 +1239,7 @@ def phase_timing(launches: dict, sharded: dict, dag: dict, errs: dict,
     with open(STREAM, "rb") as f:
         data = f.read()
     calls = _capture_main_path(data)
+    _check_staging(calls.pop("staged"))
     t0 = time.perf_counter()
     pics = roofline.census(data)
     w = roofline.work(pics)
@@ -1261,6 +1313,51 @@ def phase_timing(launches: dict, sharded: dict, dag: dict, errs: dict,
     return rows
 
 
+# the reference's per-dtype upload buffers a s1080_ldp4 dispatch
+# (p265_tpu/pipeline/batch_decode.py _pack: one for each dtype of its
+# arrays, bool, uint8, uint16, int16, int32 and int8): the most h2d copies
+# a dispatch of the port may make
+REF_BUFFERS = 6
+
+
+def phase_upload() -> None:
+    """The upload contract on the card: one profiled pass of s1080_ldp4
+    (run_config.profile_pass) with its staging copies and bytes and the
+    device ms of every host-to-device copy in the trace (one staging copy
+    a dispatch, and no more copies than the reference's per-dtype
+    buffers); then `python -m p265_tpu_torch.profile_pack s1080_ldp4` as a
+    subprocess (exit 0, one JSON stdout line, printed)."""
+    from p265_tpu_torch.run_config import profile_pass
+    with open(STREAM, "rb") as f:
+        data = f.read()
+    pr = profile_pass(data, "cuda")
+    h2d = pr["h2d_ms"]
+    log(f"upload, one profiled s1080_ldp4 pass: {pr['h2d_copies']} staging "
+        f"copies, {pr['h2d_bytes']} bytes; {len(h2d)} host-to-device "
+        f"copies in the trace, {sum(h2d):.4f} device ms (each: "
+        + " ".join(f"{v:.4f}" for v in h2d) + f"); pass device "
+        f"{pr['device_ms']:.4f} ms over {pr['ops']} operations, idle share "
+        f"{pr['idle']:.4f}")
+    require(pr["h2d_copies"] == N_FRAMES,
+            f"{pr['h2d_copies']} staging copies for {N_FRAMES} dispatches")
+    require(0 < len(h2d) <= REF_BUFFERS * N_FRAMES,
+            f"{len(h2d)} h2d copies in a pass, more than the reference's "
+            f"{REF_BUFFERS} a dispatch")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "p265_tpu_torch.profile_pack",
+                        "s1080_ldp4"], cwd=ROOT, capture_output=True,
+                       text=True, timeout=600)
+    require(r.returncode == 0, f"profile_pack exited {r.returncode}: "
+            f"{r.stderr[-2000:]}")
+    lines = r.stdout.splitlines()
+    require(len(lines) == 1, f"profile_pack printed {len(lines)} lines")
+    rec = json.loads(lines[0])
+    require(len(rec["pictures"]) == N_FRAMES and rec["card"],
+            f"profile_pack record {lines[0][:300]}")
+    log(f"profile_pack s1080_ldp4 ({time.perf_counter() - t0:.1f} s): "
+        + lines[0])
+
+
 def phase_measuring(golden_dir: str) -> None:
     """The port's measuring modules on the card: the bench as a
     subprocess (exactly one stdout line, JSON with the four keys, value >
@@ -1327,7 +1424,7 @@ def phase_measuring(golden_dir: str) -> None:
             "kernel expected on every rank")
     log(f"dryrun_multichip(2): bit-exact over {out['backend']}, launches "
         f"per rank {out['launches']} ({time.perf_counter() - t1:.2f} s)")
-    log(f"phase 14 (measuring modules): {time.perf_counter() - t0:.1f} s")
+    log(f"phase 15 (measuring modules): {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1353,6 +1450,7 @@ def main() -> int:
         dag = phase_frame_dag(RA_STREAM, warm=3)
         sharded = phase_sharded(gold_planes, steps)
         rows = phase_timing(launches, sharded, dag, errs, kind)
+        phase_upload()
         phase_measuring(tmp)
     log(f"chip_smoke: total wall time {time.perf_counter() - t_start:.1f} s")
     require("jax" not in sys.modules, "jax was imported")

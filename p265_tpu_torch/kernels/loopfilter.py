@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from p265_tpu_torch.golden.decoder import bypass_pixel_masks
-from p265_tpu_torch.kernels import _build, upload
+from p265_tpu_torch.kernels import _build
+from p265_tpu_torch.kernels.staging import stage
 from p265_tpu_torch.syntax.ctu import SAO_BAND, SAO_EDGE
 from p265_tpu_torch.tables import BETA_TABLE, TC_TABLE, chroma_qp_from_luma
 
@@ -531,7 +532,9 @@ def pack_filter_params(plans: list, flags=None, masks: bool = True) -> dict:
     pictures' own flags, which must then be the same for all of them.  A
     stage's keys are present only when it is on (bs/beta/tc/tcc_{v,h},
     sao_{ty,cls,off}_{0,1}); mask_y/mask_c only when `masks` and a picture
-    has bypass samples.  filter_planes runs exactly the stages it finds."""
+    has bypass samples.  filter_planes runs exactly the stages it finds.
+    The arrays travel at the reference's wire dtypes (its _build_batch):
+    the edge parameters int16, the SAO maps int8, the masks bool."""
     if flags is None:
         sigs = {filter_flags(p) for p in plans}
         if len(sigs) != 1:
@@ -545,18 +548,19 @@ def pack_filter_params(plans: list, flags=None, masks: bool = True) -> dict:
             lp = [luma_edge_params(p, vertical) for p in plans]
             cp = [chroma_edge_params(p, vertical) for p in plans]
             key = "v" if vertical else "h"
-            fp[f"bs_{key}"] = np.stack([x[0] for x in lp])
-            fp[f"beta_{key}"] = np.stack([x[1] for x in lp])
-            fp[f"tc_{key}"] = np.stack([x[2] for x in lp])
+            fp[f"bs_{key}"] = np.stack([x[0] for x in lp]).astype(np.int16)
+            fp[f"beta_{key}"] = np.stack([x[1] for x in lp]).astype(np.int16)
+            fp[f"tc_{key}"] = np.stack([x[2] for x in lp]).astype(np.int16)
             fp[f"tcc_{key}"] = np.stack([x[0] for x in cp]
-                                        + [x[1] for x in cp])
+                                        + [x[1] for x in cp]).astype(np.int16)
     for c, on in ((0, sao_luma), (1, sao_chroma)):
         if not on:
             continue
         maps = [sao_maps(p, cc) for cc in ((0,) if c == 0 else (1, 2))
                 for p in plans]
         for i, name in enumerate(("ty", "cls", "off")):
-            fp[f"sao_{name}_{c}"] = np.stack([m[i] for m in maps])
+            fp[f"sao_{name}_{c}"] = np.stack([m[i] for m in maps]).astype(
+                np.int8)
     if masks:
         ms = [bypass_pixel_masks(p) for p in plans]
         if any(m is not None for m in ms):
@@ -574,8 +578,12 @@ def pack_filter_params(plans: list, flags=None, masks: bool = True) -> dict:
 def filter_planes(luma, chroma, fp: dict, ctb: int) -> tuple:
     """Device: luma [F,H,W] and chroma [2F,Hc,Wc] int32 prefilter planes ->
     the filtered pair; fp is pack_filter_params' dict as tensors on the
-    planes' device, ctb the luma CTB size.  On the card: one deblocking
-    launch (deblock_planes) and two SAO launches (luma; cb and cr)."""
+    planes' device (staged at its wire dtypes: each integer array is
+    widened to the kernels' int32 here), ctb the luma CTB size.  On the
+    card: one deblocking launch (deblock_planes) and two SAO launches
+    (luma; cb and cr)."""
+    fp = {k: v if v.dtype == torch.bool else v.to(torch.int32)
+          for k, v in fp.items()}
     pre_luma, pre_chroma = luma, chroma
     if "bs_v" in fp:
         luma, chroma = deblock_planes(luma, chroma, fp)
@@ -606,7 +614,7 @@ def _filter_frames(plans: list, planes_list: list, device, flags=None,
             device=device, dtype=torch.int32) for pl in planes_list])
 
     F = len(plans)
-    fp = upload(pack_filter_params(plans, flags, masks), device)
+    fp = stage(pack_filter_params(plans, flags, masks), device)
     luma, chroma = filter_planes(stack(0), torch.cat([stack(1), stack(2)]),
                                  fp, plans[0].sps.ctb_size)
     return [[luma[f], chroma[f], chroma[F + f]] for f in range(F)]

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from p265_tpu_torch.tables import CHROMA_FILTER, LUMA_FILTER
-from p265_tpu_torch.kernels import _build, upload
+from p265_tpu_torch.kernels import _build
+from p265_tpu_torch.kernels.staging import stage
 
 BIT_DEPTH = 8
 
@@ -490,7 +491,7 @@ def stamp_pcm(plan, out: list) -> None:
         st = pcm_samples(plan, [0 if k == c else None for k in range(3)],
                          plane.shape[1])
         if st is not None:
-            idx, val = (torch.from_numpy(a).to(plane.device) for a in st)
+            idx, val = stage(st, plane.device)
             plane.view(-1)[idx] = val
 
 
@@ -528,7 +529,7 @@ def build_inter_pred_device(plan, refs: dict, device):
         arrays = mc_arrays_padded(plan, {p: i for i, p in enumerate(poc_list)},
                                   mc_block_counts(plan))
         out = mc_pred_planes(ref_stacks(refs, poc_list, device),
-                             upload(arrays, device), shapes, uses_l1(arrays))
+                             stage(arrays, device), shapes, uses_l1(arrays))
     else:
         out = [torch.zeros(s, dtype=torch.int32, device=device)
                for s in shapes]

@@ -20,9 +20,12 @@ reproduces `_decode_batch_jit` step for step:
    kernels/loopfilter.py `filter_planes`).
 
 Plane layout: the F luma segments first, then F cb and F cr segments, each
-h + GUARD rows high inside one tall plane.  The JAX package's per-dtype
-pack/unpack buffers and power-of-two shape ladder worked around XLA
-compile costs and have no counterpart here: arrays keep their exact shapes.
+h + GUARD rows high inside one tall plane.  The batch's arrays travel at
+the reference's narrow wire dtypes and reach the device in ONE copy a
+dispatch (kernels/staging.py), the reference's "one dispatch (a few
+per-dtype uploads)"; its per-dtype buffer layout and power-of-two shape
+ladder worked around XLA compile costs and have no counterpart here:
+arrays keep their exact shapes.
 """
 from __future__ import annotations
 
@@ -31,13 +34,13 @@ import time
 import numpy as np
 import torch
 
-from p265_tpu_torch.kernels import upload
 from p265_tpu_torch.kernels.loopfilter import (filter_flags, filter_planes,
                                                pack_filter_params)
 from p265_tpu_torch.kernels.mc import mc_pred_planes, pcm_samples, uses_l1
+from p265_tpu_torch.kernels.staging import stage
 from p265_tpu_torch.pipeline.wavefront import (
     GUARD, attached_pred, hoist_inter, merge_segments, run_scan, scan_fields,
-    segment_offsets, stack_plane)
+    segment_offsets, stack_plane, step_starts)
 
 
 def _add(stats, key: str, seconds: float) -> None:
@@ -101,9 +104,9 @@ def decode_batch_planes(batch: dict, refs, device,
     refs: None, or per frame a 3-tuple of uint8 reference stacks [R,H,W]
     (y, cb, cr) on `device`, for the frames' MC; the stacks of different
     frames may differ in length.  stats: optional dict accumulating
-    upload_s (every array of the batch to the device) and dispatch_s (the
-    host time of enqueueing the device work)."""
-    t0 = time.perf_counter()
+    stage()'s upload_s, h2d_bytes and h2d_copies (every array of the
+    batch, the scan's step starts included, in one copy) and dispatch_s
+    (the host time of enqueueing the device work)."""
     device = torch.device(device)
     m = batch["meta"]
     F, H, W, Hc, Wc = m["F"], m["H"], m["W"], m["Hc"], m["Wc"]
@@ -111,8 +114,10 @@ def decode_batch_planes(batch: dict, refs, device,
     total_h, pw = m["shape"]
     shape = (total_h + GUARD, pw)
     tu, starts = scan_fields(batch["tu"])
-    dev = upload(dict(fp=batch["fp"], mc=batch["mc"], pcm=batch["pcm"],
-                      itu=batch["itu"], tu=tu), device)
+    dev = stage(dict(fp=batch["fp"], mc=batch["mc"], pcm=batch["pcm"],
+                     itu=batch["itu"], tu=tu,
+                     starts=step_starts(starts, batch["n_steps"])),
+                device, stats)
     t1 = time.perf_counter()
 
     # 1. MC prediction planes at each frame's segment offsets: one MC
@@ -140,7 +145,7 @@ def decode_batch_planes(batch: dict, refs, device,
 
     # 2.-3. hoisted inter TUs, intra residuals, wavefront scan
     plane = run_scan(dev["itu"], dev["tu"], starts, batch["n_steps"], pred,
-                     shape, device)
+                     shape, device, starts_dev=dev["starts"])
 
     # split the tall plane (F*seg_h + 2F*seg_hc rows, the guard included)
     # into [F] luma and [2F] chroma batches
@@ -152,7 +157,6 @@ def decode_batch_planes(batch: dict, refs, device,
     u8 = torch.uint8
     out = (pre_luma.to(u8), pre_chroma.to(u8), luma.contiguous().to(u8),
            chroma.contiguous().to(u8))
-    _add(stats, "upload_s", t1 - t0)
     _add(stats, "dispatch_s", time.perf_counter() - t1)
     return out
 

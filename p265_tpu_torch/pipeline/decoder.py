@@ -116,7 +116,7 @@ class TorchDecoder(DecoderBase):
         self.fused = fused and apply_filters and filters_on_device
         self.frame_dag_max = frame_dag_max if self.fused else 1
         self._open: list = []       # the open frame-DAG group
-        self.stats["fetch_s"] = 0.0
+        self.stats.update(fetch_s=0.0, h2d_bytes=0, h2d_copies=0)
 
     def _build_tplan(self, plan):
         ns = getattr(plan, "nstate", None)

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from p265_tpu_torch.plan.frame_plan import PlanePlan, TensorPlan, TuBatch
-from p265_tpu_torch.kernels import _build, intra, itransform, upload
+from p265_tpu_torch.kernels import _build, intra, itransform
+from p265_tpu_torch.kernels.staging import stage, widen
 from p265_tpu_torch.tables import INTRA_ANGLE, INV_ANGLE
 
 GUARD = 32
@@ -111,35 +112,59 @@ def merge_segments(pps_: list):
     return merged
 
 
+def coord_dtype(shape) -> type:
+    """The wire dtype of the coordinates of a tall plane of `shape` (rows,
+    pw), the reference's rule (p265_tpu/pipeline/wavefront.py
+    _stack_plane): uint16 while the rows, the guard rows included, and
+    the width stay below 65000, else int32."""
+    ph, pw = shape
+    return np.uint16 if max(ph + GUARD, pw) < 65000 else np.int32
+
+
 def stack_plane(pp: PlanePlan) -> dict:
     """Host: per-size compact per-TU arrays of the scan, in step order.
 
     Returns {log2: fields} with the SCAN_FIELDS (scale_m only where a
-    scaling list is in use) plus `starts` [n_steps+1] int64: the TUs of
-    wavefront step k+1 are rows starts[k]:starts[k+1].  Coordinates are
-    int64, ready to index with; coefficients travel as int16."""
+    scaling list is in use) plus `starts` [n_steps+1] int64, host only:
+    the TUs of wavefront step k+1 are rows starts[k]:starts[k+1].  The
+    fields travel at the reference's wire dtypes: coordinates (pos, ref_ys,
+    ref_xs) at coord_dtype, mode, qp and scale_m uint8, coeffs int16, the
+    flags bool; expand() widens them on the device."""
+    cdt = coord_dtype(pp.shape)
     out = {}
     for log2, b in pp.batches.items():
         d = dict(
             starts=np.searchsorted(b.step, np.arange(1, pp.n_steps + 2)
                                    ).astype(np.int64),
-            pos=b.pos.astype(np.int64),
-            ref_ys=b.ref_ys.astype(np.int64),
-            ref_xs=b.ref_xs.astype(np.int64),
+            pos=b.pos.astype(cdt),
+            ref_ys=b.ref_ys.astype(cdt),
+            ref_xs=b.ref_xs.astype(cdt),
             ref_ok=b.ref_ok.astype(bool),
-            mode=b.mode.astype(np.int32),
+            mode=b.mode.astype(np.uint8),
             filter_flag=b.filter_flag.astype(bool),
             strong_allowed=b.strong_allowed.astype(bool),
             dc_edge=b.dc_edge.astype(bool),
             coeffs=b.coeffs.astype(np.int16),
-            qp=b.qp.astype(np.int32),
+            qp=b.qp.astype(np.uint8),
             is_dst=b.is_dst.astype(bool),
             tskip=b.tskip.astype(bool),
             bypass=b.bypass.astype(bool),
         )
         if b.scale_m is not None:
-            d["scale_m"] = b.scale_m.astype(np.int32)
+            d["scale_m"] = b.scale_m.astype(np.uint8)
         out[log2] = d
+    return out
+
+
+def k1_fields(tu: dict) -> dict:
+    """Device: staged TU fields -> K1's (batch_residual_grouped's) fields:
+    qp and scale_m widened to int32, coefficients as staged (int16)."""
+    out = {}
+    for log2, d in tu.items():
+        f = dict(d, qp=widen(d["qp"], torch.int32))
+        if d.get("scale_m") is not None:
+            f["scale_m"] = widen(d["scale_m"], torch.int32)
+        out[log2] = f
     return out
 
 
@@ -148,16 +173,20 @@ def expand(tu: dict, pw: int) -> dict:
     and the flat gather indices of their references in the tall plane
     [*, pw].
 
-    tu: {log2: fields} as stack_plane gives them, as device tensors.
-    Returns {log2: dict(ref_idx [n, 2(2s+1)] int64, ref_ok, mode,
-    filter_flag, strong_allowed, dc_edge, pos [n, 2] int64, residual
-    [n, s, s] int32)}."""
-    res = itransform.batch_residual_grouped(tu)   # all sizes, one launch
+    tu: {log2: fields} as stack_plane gives them, as device tensors (at
+    their wire dtypes, or wider).  Returns {log2: dict(ref_idx [n, 2(2s+1)]
+    int64, ref_ok, mode int32, filter_flag, strong_allowed, dc_edge, pos
+    [n, 2] int64, residual [n, s, s] int32)}: the widening casts are the
+    scan's and K1's only reads of the narrow fields."""
+    # all sizes, one launch
+    res = itransform.batch_residual_grouped(k1_fields(tu))
+    i64 = torch.int64
     return {log2: dict(
-        ref_idx=d["ref_ys"] * pw + d["ref_xs"], ref_ok=d["ref_ok"],
-        mode=d["mode"], filter_flag=d["filter_flag"],
-        strong_allowed=d["strong_allowed"], dc_edge=d["dc_edge"],
-        pos=d["pos"], residual=res[log2]) for log2, d in tu.items()}
+        ref_idx=widen(d["ref_ys"], i64) * pw + widen(d["ref_xs"], i64),
+        ref_ok=d["ref_ok"], mode=widen(d["mode"], torch.int32),
+        filter_flag=d["filter_flag"], strong_allowed=d["strong_allowed"],
+        dc_edge=d["dc_edge"], pos=widen(d["pos"], i64), residual=res[log2])
+        for log2, d in tu.items()}
 
 
 # the kernel's per-bucket fields, in the column order of its table, with
@@ -200,17 +229,33 @@ class ScanPack:
     table: np.ndarray | None
 
 
-def pack_scan(stacked: dict, starts: dict, n_steps: int, device) -> ScanPack:
+def step_starts(starts: dict, n_steps: int) -> np.ndarray:
+    """The host step starts {log2: [n_steps+1]} -> int32 [n_buckets,
+    n_steps+1] in ascending log2, the layout ScanPack.starts has on the
+    device (stage it with the dispatch's arrays)."""
+    return (np.stack([starts[k] for k in sorted(starts)]).astype(np.int32)
+            if starts else np.zeros((0, n_steps + 1), np.int32))
+
+
+def pack_scan(stacked: dict, starts: dict, n_steps: int, device,
+              starts_dev=None) -> ScanPack:
     """expand()'s output and the host step starts {log2: int64
-    [n_steps+1]} -> the scan's ScanPack, its step starts uploaded to
-    `device`.  On a CUDA device every field must have the dtype, shape and
-    device the kernel reads; a mismatch raises."""
+    [n_steps+1]} -> the scan's ScanPack.  starts_dev: the same starts
+    already on `device` (step_starts(), staged with the dispatch); None
+    stages them here.  On a CUDA device every field must have the dtype,
+    shape and device the kernel reads; a mismatch raises."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     buckets = dict(sorted(stacked.items()))
-    st = (np.stack([starts[log2] for log2 in buckets]).astype(np.int32)
-          if buckets else np.zeros((0, n_steps + 1), np.int32))
+    st = step_starts({log2: starts[log2] for log2 in buckets}, n_steps)
+    if starts_dev is None:
+        starts_dev = stage(st, device)
+    elif (starts_dev.dtype != torch.int32 or starts_dev.device != device
+          or tuple(starts_dev.shape) != st.shape):
+        raise ValueError(f"pack_scan: starts_dev must be int32 {st.shape} "
+                         f"on {device}, got {starts_dev.dtype} "
+                         f"{tuple(starts_dev.shape)} on {starts_dev.device}")
     step_tus = (st[:, 1:] - st[:, :-1]).sum(0)
     table = None
     if device.type == "cuda":
@@ -231,8 +276,7 @@ def pack_scan(stacked: dict, starts: dict, n_steps: int, device) -> ScanPack:
                         f"{tuple(t.shape)} on {t.device}")
                 ptrs.append(t.data_ptr())
             table[row] = (*ptrs, log2)
-    return ScanPack(buckets, torch.from_numpy(st).to(device), step_tus,
-                    n_steps, table)
+    return ScanPack(buckets, starts_dev, step_tus, n_steps, table)
 
 
 def scan_packed_ref(packed: ScanPack, plane, k0: int, k1: int):
@@ -310,10 +354,11 @@ def _scan_launch(packed: ScanPack, plane, k0: int, k1: int,
 
 
 def scan_plane(stacked: dict, starts: dict, n_steps: int, plane,
-               after_step=None):
+               after_step=None, starts_dev=None):
     """Device: run the wavefront over `plane` [rows, pw] int32 in place.
 
-    stacked: expand() output; starts: {log2: host int64 [n_steps+1]}.
+    stacked: expand() output; starts: {log2: host int64 [n_steps+1]};
+    starts_dev: pack_scan's.
     Packs the scan once (pack_scan), then runs it: on a CPU plane by the
     plain version, on a CUDA plane by the kernel (any other device
     raises).  Without after_step, one run over all the steps; with it,
@@ -323,7 +368,7 @@ def scan_plane(stacked: dict, starts: dict, n_steps: int, plane,
     if plane.device.type not in ("cpu", "cuda"):
         raise ValueError(f"scan_plane: no scan for a plane on {plane.device}")
     run = scan_packed_ref if plane.device.type == "cpu" else scan_packed
-    packed = pack_scan(stacked, starts, n_steps, plane.device)
+    packed = pack_scan(stacked, starts, n_steps, plane.device, starts_dev)
     ranges = ([(0, n_steps)] if after_step is None
               else [(k, k + 1) for k in range(n_steps)])
     for k0, k1 in ranges:
@@ -342,18 +387,20 @@ def hoist_inter(merged) -> dict | None:
     the scan keeps the dependency order (intra readers of inter samples sit
     at step >= 2) and leaves the scan intra-only.  Mutates merged.batches
     in place; returns {log2: dict(pos, coeffs, qp, tskip, bypass
-    [, scale_m])} of the inter TUs, or None when there are none."""
+    [, scale_m])} of the inter TUs, at stack_plane's wire dtypes, or None
+    when there are none."""
+    cdt = coord_dtype(merged.shape)
     out = {}
     for log2, b in list(merged.batches.items()):
         m = np.asarray(b.inter)
         if not m.any():
             continue
-        d = dict(pos=b.pos[m].astype(np.int64),
+        d = dict(pos=b.pos[m].astype(cdt),
                  coeffs=b.coeffs[m].astype(np.int16),
-                 qp=b.qp[m].astype(np.int32), tskip=b.tskip[m].astype(bool),
+                 qp=b.qp[m].astype(np.uint8), tskip=b.tskip[m].astype(bool),
                  bypass=b.bypass[m].astype(bool))
         if b.scale_m is not None:
-            d["scale_m"] = b.scale_m[m].astype(np.int32)
+            d["scale_m"] = b.scale_m[m].astype(np.uint8)
         out[log2] = d
         keep = ~m
         merged.batches[log2] = dataclasses.replace(
@@ -372,12 +419,13 @@ def init_plane(itu, pred, shape, device):
     if itu is None:
         return plane
     pw = shape[1]
-    res = itransform.batch_residual_grouped(itu)
+    res = itransform.batch_residual_grouped(k1_fields(itu))
     idx, val = [], []
     for log2, d in itu.items():
         ar = torch.arange(1 << log2, device=device)
-        idx.append(((d["pos"][:, 0, None, None] + ar[None, :, None]) * pw
-                    + d["pos"][:, 1, None, None]
+        pos = widen(d["pos"], torch.int64)
+        idx.append(((pos[:, 0, None, None] + ar[None, :, None]) * pw
+                    + pos[:, 1, None, None]
                     + ar[None, None, :]).reshape(-1))
         val.append(res[log2].reshape(-1))
     res_plane = torch.zeros_like(plane).view(-1)
@@ -387,7 +435,7 @@ def init_plane(itu, pred, shape, device):
 
 
 def scan_fields(tu: dict) -> tuple:
-    """stack_plane's output -> (the per-TU arrays to upload, the host
+    """stack_plane's output -> (the per-TU arrays to stage, the host
     `starts` {log2: [n_steps+1]})."""
     return ({log2: {k: v for k, v in d.items() if k != "starts"}
              for log2, d in tu.items()},
@@ -395,15 +443,16 @@ def scan_fields(tu: dict) -> tuple:
 
 
 def run_scan(itu, fields, starts: dict, n_steps: int, pred, shape, device,
-             after_step=None):
+             after_step=None, starts_dev=None):
     """Device: the whole reconstruction of one merged plane.  The hoisted
     inter TUs (one K1 launch) over the prediction plane `pred` (or None),
     then the residuals of the scan's TUs (one K1 launch) and the wavefront.
     itu and fields are device tensors (hoist_inter's and scan_fields'
-    outputs after upload).  Returns the plane [shape] int32."""
+    outputs after stage()); starts_dev as pack_scan's.  Returns the plane
+    [shape] int32."""
     plane = init_plane(itu, pred, shape, device)
     return scan_plane(expand(fields, shape[1]), starts, n_steps, plane,
-                      after_step)
+                      after_step, starts_dev=starts_dev)
 
 
 # ---------------------------------------------------------------------------
@@ -440,10 +489,12 @@ def _reconstruct_merged(pps_: list, device) -> list:
     total_h, pw = merged.shape
     shape = (total_h + GUARD, pw)
     pred = attached_pred(pps_, offs, shape, device)
-    itu = upload(hoist_inter(merged), device)
+    itu = hoist_inter(merged)
     fields, starts = scan_fields(stack_plane(merged))
-    plane = run_scan(itu, upload(fields, device), starts, merged.n_steps,
-                     pred, shape, device)
+    dev = stage(dict(itu=itu, tu=fields,
+                     starts=step_starts(starts, merged.n_steps)), device)
+    plane = run_scan(dev["itu"], dev["tu"], starts, merged.n_steps, pred,
+                     shape, device, starts_dev=dev["starts"])
     return [plane[off:off + pp.shape[0], :pp.shape[1]]
             for pp, off in zip(pps_, offs)]
 

@@ -9,10 +9,13 @@ After one warm-up pass it prints:
 1. per dispatch (a picture, or a frame-DAG group of pictures) and per
    Stage-B stage, the wall time of TorchDecoder with the device
    synchronised after every stage (so each stage's host and device time
-   are charged to it; the sum is a serial decode);
+   are charged to it; the sum is a serial decode), and the dispatch's
+   h2d copies and bytes (stats["h2d_copies"], stats["h2d_bytes"]);
 2. for PipelinedTorchDecoder, a torch.profiler window over one whole pass:
    wall time, device time (the sum of kernel and copy time), the device's
-   idle share, the number of device operations, and the top kernels.
+   idle share, the number of device operations, the top kernels, and the
+   host-to-device copies with the device ms of each, in order (one a
+   dispatch: the h2d device ms of each dispatch).
 
 --json writes the stage table's sums over the dispatches of the stages
 that p265_tpu_torch.roofline counts as a whole, {stage: seconds a pass}
@@ -59,7 +62,7 @@ def _stage_table(data: bytes, dag: int) -> dict:
     stages = [(dm, "build_tensor_plan", "tensor plan"),
               (dm, "mc_arrays_padded", "MC pack"),
               (dm, "build_batch", "batch pack"),
-              (bd, "upload", "upload"),
+              (bd, "stage", "upload"),
               (bd, "mc_pred_planes", "MC"),
               (wf, "expand", "intra residual"),
               (wf, "scan_plane", "scan"),
@@ -75,12 +78,14 @@ def _stage_table(data: bytes, dag: int) -> dict:
         # the tensor plans were built while the stream was parsed, before
         # the group was closed: their time is already in acc
         torch.cuda.synchronize()
+        h2d = self.stats["h2d_copies"], self.stats["h2d_bytes"]
         t0 = time.perf_counter()
         orig_run(self, tasks)
         rows.append(("+".join(str(t["plan"].poc) for t in tasks),
                      bool(tasks[0]["plan"].pus), steps[-1],
                      time.perf_counter() - t0 + acc["tensor plan"],
-                     dict(acc)))
+                     dict(acc), self.stats["h2d_copies"] - h2d[0],
+                     self.stats["h2d_bytes"] - h2d[1]))
         acc.clear()
 
     dm.TorchDecoder._run_recon_group = run
@@ -93,13 +98,14 @@ def _stage_table(data: bytes, dag: int) -> dict:
     labels = list(dict.fromkeys(label for _, _, label in stages))
     print(f"serial TorchDecoder(frame_dag_max={dag}), device synchronised "
           "after every stage (s):")
-    print("pocs kind steps total " + " | ".join(labels) + " | rest")
-    for poc, inter, n_steps, total, a in rows:
+    print("pocs kind steps total " + " | ".join(labels)
+          + " | rest | h2d copies | h2d bytes")
+    for poc, inter, n_steps, total, a, copies, nbytes in rows:
         parts = [a.get(lb, 0.0) for lb in labels]
         print(f"{poc} {'P' if inter else 'I'} {n_steps} {total:.4f} "
               + " | ".join(f"{p:.4f}" for p in parts)
-              + f" | {total - sum(parts):.4f}")
-    return {st: sum(a.get(label, 0.0) for *_, a in rows)
+              + f" | {total - sum(parts):.4f} | {copies} | {nbytes}")
+    return {st: sum(r[4].get(label, 0.0) for r in rows)
             for label, st in ROOFLINE_STAGES.items()}
 
 
@@ -125,6 +131,19 @@ def _profile_window(data: bytes, dag: int) -> None:
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} {e.count:7d}  "
               f"{e.key[:90]}")
+    h2d = h2d_copies(prof)
+    print(f"host-to-device copies: {len(h2d)}, {sum(h2d):.4f} device ms; "
+          "each, in order: " + " ".join(f"{ms:.4f}" for ms in h2d))
+
+
+def h2d_copies(prof) -> list:
+    """Device ms of each host-to-device copy of a torch.profiler window,
+    in the order they ran."""
+    from torch.autograd import DeviceType
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and "HtoD" in e.name),
+                key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() / 1e3 for e in ev]
 
 
 def main(argv=None) -> None:

@@ -19,8 +19,10 @@ stream with tiles or WPP it also times the parse alone (the port's native
 CTU parse, no reconstruction) with the host lanes (parse_workers()) and
 with one lane, best of 3 each, in turns.  --profile adds one more pass
 under torch.profiler: each kernel's device time, in all and launch by
-launch, and the device's idle share; then a serial TorchDecoder pass under
-torch.profiler gives each stage's device time (bench.stage_profile).  `run()` returns all of it as one record (report() prints it).
+launch, the device's idle share and the host-to-device copies (device ms
+of each, beside the pass's staging copies and bytes); then a serial
+TorchDecoder pass under torch.profiler gives each stage's device time
+(bench.stage_profile).  `run()` returns all of it as one record (report() prints it).
 """
 from __future__ import annotations
 
@@ -220,7 +222,10 @@ KERNEL_SYMBOLS = {"itransform": "itransform_grouped_kernel",
 def profile_pass(data: bytes, device: str) -> dict:
     """One more pass under torch.profiler: device ms of each kernel of
     the port (KERNEL_SYMBOLS), in all and launch by launch (in launch
-    order), and of everything, wall ms and the device's idle share."""
+    order), and of everything, wall ms, the device's idle share, and the
+    host-to-device copies (device ms of each, in order) beside the
+    pass's h2d_copies and h2d_bytes."""
+    from p265_tpu_torch.profile_decode import h2d_copies
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -238,9 +243,12 @@ def profile_pass(data: bytes, device: str) -> dict:
          and sym in e.name), key=lambda e: e.time_range.start)]
         for k, sym in KERNEL_SYMBOLS.items()}
     wall = p["seconds"] * 1e3
+    h2d = h2d_copies(prof)
     return dict(wall_ms=wall, device_ms=total, kernels_ms=kernels,
                 launches_ms=each, idle=1 - total / wall,
-                ops=sum(e.count for e in ev))
+                ops=sum(e.count for e in ev), h2d_ms=h2d,
+                h2d_copies=p["stats"].get("h2d_copies"),
+                h2d_bytes=p["stats"].get("h2d_bytes"))
 
 
 def run(name: str, n_warm: int = 2, device: str = "cuda",
@@ -319,6 +327,10 @@ def report(rec: dict) -> None:
         log("  device ms of each launch: " + "; ".join(
             f"{k} " + " ".join(f"{v:.4f}" for v in ms)
             for k, ms in pr["launches_ms"].items()))
+        log(f"  h2d: {pr['h2d_copies']} staging copies, {pr['h2d_bytes']} "
+            f"bytes; {len(pr['h2d_ms'])} host-to-device copies in the "
+            f"trace, {sum(pr['h2d_ms']):.4f} device ms (each: "
+            + " ".join(f"{v:.4f}" for v in pr["h2d_ms"]) + ")")
 
 
 def main(argv=None) -> int:

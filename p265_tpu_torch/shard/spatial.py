@@ -41,16 +41,17 @@ import torch
 import torch.distributed as dist
 
 from p265_tpu_torch.golden.decoder import DecoderBase, bypass_pixel_masks
-from p265_tpu_torch.kernels import upload
 from p265_tpu_torch.kernels.loopfilter import (
     chroma_edge_params, deblock_chroma_vertical, deblock_luma_vertical,
     filter_flags, luma_edge_params)
 from p265_tpu_torch.kernels.mc import (mc_arrays_padded, mc_block_counts,
                                        mc_pred_planes, ref_stacks, stamp_pcm,
                                        uses_l1)
+from p265_tpu_torch.kernels.staging import stage
 from p265_tpu_torch.pipeline.wavefront import (GUARD, hoist_inter,
                                                merge_segments, run_scan,
-                                               scan_fields, stack_plane)
+                                               scan_fields, stack_plane,
+                                               step_starts)
 from p265_tpu_torch.plan.frame_plan import PlanePlan, build_tensor_plan
 from p265_tpu_torch.shard.filters import sao_sharded
 from p265_tpu_torch.shard.mesh import (COUNTS, all_gather,
@@ -148,18 +149,21 @@ def reconstruct_spatial(tplan, group, device, pred_planes=None) -> list:
                 blk = local_rows(_planes([p], device)[0], rank, hl)
                 pred[o + 1:o + 1 + hl, :blk.shape[1]] = blk
 
-    itu = upload(hoist_inter(merged), device)
+    itu = hoist_inter(merged)
     fields, starts = scan_fields(stack_plane(merged))
-    top = torch.as_tensor(offs, device=device)        # halo rows
-    bottom = top + torch.as_tensor(hls, device=device)  # last owned rows
+    # the halo rows and the last owned rows of each segment ride along
+    dev = stage(dict(itu=itu, tu=fields,
+                     starts=step_starts(starts, merged.n_steps),
+                     top=offs, bottom=offs + np.asarray(hls)), device)
+    top, bottom = dev["top"], dev["bottom"]
 
     def exchange(plane):
         g = all_gather(plane[bottom], group)              # [n, 3, pw]
         if rank > 0:
             plane[top] = g[rank - 1]
 
-    plane = run_scan(itu, upload(fields, device), starts, merged.n_steps,
-                     pred, shape, device, exchange)
+    plane = run_scan(dev["itu"], dev["tu"], starts, merged.n_steps, pred,
+                     shape, device, exchange, starts_dev=dev["starts"])
     return _gather_blocks([plane[o + 1:o + 1 + hl, :pp.shape[1]]
                            for o, hl, pp in zip(offs, hls, tplan.planes)],
                           [pp.shape for pp in tplan.planes], group)
@@ -240,7 +244,7 @@ def mc_spatial(plan, refs: dict, group, device) -> list | None:
         arrays = _band_blocks(mc_arrays_padded(
             plan, {p: i for i, p in enumerate(poc_list)},
             mc_block_counts(plan)), hls, rank)
-        planes = mc_pred_planes(stacks, upload(arrays, device), shapes,
+        planes = mc_pred_planes(stacks, stage(arrays, device), shapes,
                                 uses_l1(arrays))
         bands = [local_rows(p, rank, hl) for p, hl in zip(planes, hls)]
     out = _gather_blocks(bands, shapes, group)

@@ -17,7 +17,8 @@ rest up to a tenth of that, so windows cross every edge; with `has_bi`, 60%
 of the blocks bi-predicted; with `weighted`, explicit weights and offsets
 in -128..127 (negative ones too) and log2_wd 0..7 a block, else the
 identity rows (1, 0, 1, 0, 0) of unweighted prediction.  Everything is
-NumPy from a seeded generator; `kernels.upload` moves it to a device."""
+NumPy from a seeded generator; `kernels.staging.stage` moves it to a
+device."""
 from __future__ import annotations
 
 import numpy as np

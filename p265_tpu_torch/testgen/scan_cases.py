@@ -4,7 +4,9 @@ expand() fields and step starts of one scan over a random plane, with
 every mode, size and flag, unavailable references, empty steps, steps
 wider than the kernel's warps and steps of one TU; `wide_scan` builds one
 at 4K plane width whose steps have more work items than the kernel's
-cluster has warps, each step reading what earlier steps wrote."""
+cluster has warps, each step reading what earlier steps wrote;
+`coord_plane` builds a tensor-plan plane whose coordinates pass 32767 (the
+tall planes and wide planes of the narrow wire dtypes)."""
 from __future__ import annotations
 
 import numpy as np
@@ -153,3 +155,46 @@ def wide_scan(rng, dev, n_steps: int = 4, cols: int = 3840):
         stacked[log2] = _fields(rng, dev, s, idx, ok, mode, ff, sa, de, pos)
         starts[log2] = np.searchsorted(st, np.arange(n_steps + 1))
     return stacked, starts, n_steps, torch.from_numpy(plane).to(dev)
+
+
+def coord_plane(rng, shape, per_size: int = 12):
+    """A PlanePlan of `shape` (rows, cols) whose TUs (per_size of each size
+    4..32, a third of them inter-predicted at step 1, the others intra at
+    steps 2..9) sit in the last 4096 rows and columns, so with rows or
+    columns past 32768 their positions and references pass 32767 too;
+    random levels, qp, modes and flags; every TU's references lie inside
+    the plane, a random mix of them available.  It has no inter_pred and
+    no scaling lists."""
+    from p265_tpu_torch.plan.frame_plan import PlanePlan, TuBatch
+    rows, cols = shape
+    pp = PlanePlan(0, tuple(shape), 10)
+    for log2 in (2, 3, 4, 5):
+        s, n = 1 << log2, per_size
+        step = np.sort(np.where(rng.random(n) < 1 / 3, 1,
+                                rng.integers(2, 10, n)))
+        inter = step == 1
+
+        def at(hi, k):
+            lo = max(0, hi - 4096)
+            return lo + rng.integers(0, (hi - lo) // s, k) * s
+
+        def flags(*sh):
+            return rng.random(sh) < 0.5
+        nr = 4 * s + 2
+        pp.batches[log2] = TuBatch(
+            size=s, pos=np.stack([at(rows, n), at(cols, n)], 1).astype(
+                np.int32),
+            step=step.astype(np.int32),
+            coeffs=rng.integers(-64, 65, (n, s, s)).astype(np.int32),
+            qp=rng.integers(0, 52, n).astype(np.int32),
+            mode=rng.integers(0, 35, n).astype(np.int32),
+            c_idx=np.zeros(n, np.int32), is_dst=flags(n) & (log2 == 2),
+            tskip=flags(n) & (log2 == 2), has_res=np.ones(n, bool),
+            bypass=rng.random(n) < 0.1, scale_m=None, inter=inter,
+            filter_flag=flags(n), strong_allowed=flags(n), dc_edge=flags(n),
+            ref_ys=rng.integers(max(0, rows - 4096), rows, (n, nr)).astype(
+                np.int32),
+            ref_xs=rng.integers(max(0, cols - 4096), cols, (n, nr)).astype(
+                np.int32),
+            ref_ok=flags(n, nr), ok_scan=flags(n, 4 * s + 1))
+    return pp

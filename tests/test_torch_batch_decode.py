@@ -2,11 +2,15 @@
 
 build_batch against the JAX _build_batch(policy=None) -- the port keeps
 exact shapes, so each JAX array is compared on its real rows and its pad
-rows are checked to be padding -- and all four outputs of
+rows are checked to be padding; every field at the reference's wire dtype,
+also on synthetic tall planes whose coordinates pass 32767 -- and all
+four outputs of
 decode_batch_planes against the JAX decode_batch_planes, for a 2-frame
 intra batch and for a fused-MC P picture whose reference slabs come from
 slabs_from_numpy.  Bit-exact.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +18,8 @@ import torch
 
 import p265_tpu.kernels.mc as jmc
 import p265_tpu.pipeline.batch_decode as jbd
+import p265_tpu.pipeline.wavefront as jwf
+import p265_tpu.plan.frame_plan as jfp
 from p265_tpu.golden.decoder import GoldenDecoder
 from p265_tpu.hls.params import PPS, SPS
 from p265_tpu.plan.frame_plan import build_tensor_plan
@@ -22,7 +28,9 @@ from p265_tpu.testgen.encoder import (Encoder, IntraEncoder,
 from p265_tpu_torch.kernels import mc
 from p265_tpu_torch.pipeline import batch_decode as bd
 from p265_tpu_torch.pipeline.decoder import slabs_from_numpy
+from p265_tpu_torch.pipeline import wavefront as wf
 from p265_tpu_torch.pipeline.wavefront import SCAN_FIELDS
+from p265_tpu_torch.testgen.scan_cases import coord_plane
 
 
 def _intra(seed, w=128, h=64, qp=30):
@@ -68,6 +76,39 @@ def _unpack(bufs, specs):
     return out
 
 
+def _check_scan_bucket(log2, d, want, ph, steps):
+    """One scan bucket: the port's fields equal the JAX ones' real rows,
+    at the same dtypes; the JAX pad rows are padding."""
+    n = d["pos"].shape[0]
+    assert np.all(want["pos"][n:] == (ph, 0))
+    assert not want["inter"][:n].any()
+    for f in SCAN_FIELDS:
+        if f in d or f in want:
+            assert np.array_equal(d[f], want[f][:n]), (log2, f)
+            assert d[f].dtype == want[f].dtype, (log2, f)
+    starts = d["starts"]
+    counts = want["counts"]
+    assert np.array_equal(np.diff(starts), counts[:steps])
+    assert not counts[steps:].any()
+    for k in range(steps):
+        row = want["idx_map"][k]
+        c = counts[k]
+        assert np.array_equal(row[:c], np.arange(starts[k], starts[k + 1]))
+        assert np.all(row[c:] == n)
+
+
+def _check_itu_bucket(log2, d, want, ph, wire):
+    """One hoisted-inter bucket: real rows equal, the JAX pad rows at (ph,
+    0).  The reference hoists its TUs at the tensor plan's dtypes (int32);
+    the port's travel at the scan's wire dtypes `wire` ({field: dtype} of
+    the reference's _stack_plane)."""
+    n = d["pos"].shape[0]
+    assert n and np.all(want["pos"][n:] == (ph, 0))
+    for f, a in d.items():
+        assert np.array_equal(a, want[f][:n]), (log2, f)
+        assert a.dtype == wire[f], (log2, f)
+
+
 def _check_build(tplans, plans, mc_jax=None, mc_port=None):
     bufs, meta = jbd._build_batch(tplans, plans, policy=None, mc=mc_jax)
     m = dict(meta)
@@ -79,43 +120,27 @@ def _check_build(tplans, plans, mc_jax=None, mc_port=None):
         assert gm[k] == m[k], k
     # scan buckets: real rows equal, the JAX pad rows are padding
     assert sorted(got["tu"]) == sorted(log2 for log2, _ in m["tu"])
+    wire = {}
     for log2, fields in m["tu"]:
         want = {f: arrays[i] for f, i in fields}
-        d = got["tu"][log2]
-        n = d["pos"].shape[0]
-        ph = m["shape"][0]
-        assert np.all(want["pos"][n:] == (ph, 0))
-        assert not want["inter"][:n].any()
-        for f in SCAN_FIELDS:
-            if f in d or f in want:
-                assert np.array_equal(d[f], want[f][:n]), (log2, f)
-        starts, steps = d["starts"], got["n_steps"]
-        counts = want["counts"]
-        assert np.array_equal(np.diff(starts), counts[:steps])
-        assert not counts[steps:].any()
-        for k in range(steps):
-            row = want["idx_map"][k]
-            c = counts[k]
-            assert np.array_equal(row[:c], np.arange(starts[k],
-                                                     starts[k + 1]))
-            assert np.all(row[c:] == n)
+        wire.update((f, a.dtype) for f, a in want.items())
+        _check_scan_bucket(log2, got["tu"][log2], want, m["shape"][0],
+                           got["n_steps"])
     # hoisted inter TUs
     if m["itu"] is None:
         assert got["itu"] is None
     else:
         assert sorted(got["itu"]) == [log2 for log2, _ in m["itu"]]
         for log2, fields in m["itu"]:
-            want = {f: arrays[i] for f, i in fields}
-            d = got["itu"][log2]
-            n = d["pos"].shape[0]
-            assert n and np.all(want["pos"][n:] == (m["shape"][0], 0))
-            for f, a in d.items():
-                assert np.array_equal(a, want[f][:n]), (log2, f)
+            _check_itu_bucket(log2, got["itu"][log2],
+                              {f: arrays[i] for f, i in fields},
+                              m["shape"][0], wire)
     # filter grids and masks
     fp = dict(m["fp"])
     assert sorted(got["fp"]) == sorted(fp)
     for k, i in fp.items():
         assert np.array_equal(got["fp"][k], arrays[i]), k
+        assert got["fp"][k].dtype == arrays[i].dtype, k
     return got
 
 
@@ -129,6 +154,34 @@ def test_build_batch_mc_matches_jax(p_picture):
     got = _check_build([d["tplan"]], [d["g"].plan], mc_jax=[d["mc_jax"]],
                        mc_port=[d["mc"]])
     assert got["itu"] is not None
+
+
+@pytest.mark.parametrize("rows", (40_000, 70_000))
+def test_build_tall_plane_matches_jax(rows):
+    """A synthetic plane whose rows pass 32767 (uint16 coordinates) and
+    65000 (int32): merge, hoist and stack against the JAX
+    _merge_segments, _hoist_inter and _stack_plane, values and dtypes."""
+    pp = coord_plane(np.random.default_rng(rows), (rows, 64))
+    jpp = jfp.PlanePlan(pp.plane_idx, pp.shape, pp.n_steps, {
+        log2: jfp.TuBatch(**{f.name: getattr(b, f.name)
+                             for f in dataclasses.fields(b)})
+        for log2, b in pp.batches.items()})
+    jmerged, _ = jwf._merge_segments([jpp], policy=None, host_pred=False)
+    jitu = jbd._hoist_inter(jmerged, None)
+    _, jtu = jwf._stack_plane(jmerged, policy=None)
+    merged = wf.merge_segments([pp])
+    itu = wf.hoist_inter(merged)
+    tu = wf.stack_plane(merged)
+    assert merged.shape == jmerged.shape
+    ph = merged.shape[0]
+    wire = {f: a.dtype for d in jtu.values() for f, a in d.items()}
+    assert wire["pos"] == (np.uint16 if rows < 65000 else np.int32)
+    assert sorted(tu) == sorted(jtu) and sorted(itu) == sorted(jitu)
+    for log2, d in tu.items():
+        assert int(d["pos"][:, 0].max()) > 32767
+        _check_scan_bucket(log2, d, jtu[log2], ph, merged.n_steps)
+    for log2, d in itu.items():
+        _check_itu_bucket(log2, d, jitu[log2], ph, wire)
 
 
 def _compare_outputs(got, want):

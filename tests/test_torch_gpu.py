@@ -20,8 +20,9 @@ from p265_tpu.hls.params import PPS, SPS
 from p265_tpu.testgen.encoder import (Encoder, IntraEncoder,
                                       make_moving_sequence, make_test_image)
 from p265_tpu_torch.golden.decoder import GoldenDecoder as PortGolden
-from p265_tpu_torch.kernels import _build, itransform, mc, upload
+from p265_tpu_torch.kernels import _build, itransform, mc
 from p265_tpu_torch.kernels import loopfilter as lf
+from p265_tpu_torch.kernels.staging import stage
 from p265_tpu_torch.pipeline import wavefront as wf
 from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
 from p265_tpu_torch.plan.frame_plan import build_tensor_plan
@@ -160,7 +161,7 @@ def test_itransform_kernel_partial_tiles_match_plain(cuda, dtype, scale):
     levels and scale_m that start off the 16-byte grid."""
     rng = np.random.default_rng(int(scale) + 2 * (dtype == np.int32))
     for n in (150, 9):
-        groups = upload(kc.residual_groups(rng, n, scale, dtype), cuda)
+        groups = stage(kc.residual_groups(rng, n, scale, dtype), cuda)
         before = _build.LAUNCHES["itransform"]
         got = itransform.batch_residual_grouped(groups)
         assert _build.LAUNCHES["itransform"] == before + 1
@@ -194,7 +195,7 @@ def test_mc_pred_planes_kernel_matches_plain(cuda, kind):
     for _ in range(2):
         stacks, arrays, shapes = kc.pred_case(rng, 1080, 1920, has_bi,
                                               weighted)
-        frames.append((upload(stacks, cuda), upload(arrays, cuda), shapes))
+        frames.append((stage(stacks, cuda), stage(arrays, cuda), shapes))
     stacks, arrays, shapes = frames[0]
     before = _build.LAUNCHES["mc"]
     got = mc.mc_pred_planes(stacks, arrays, shapes, has_bi)
@@ -307,10 +308,10 @@ def test_scan_kernel_matches_plain(cuda):
     total_h, pw = merged.shape
     shape = (total_h + wf.GUARD, pw)
     pred = wf.attached_pred(pps, wf.segment_offsets(pps), shape, cuda)
-    itu = upload(wf.hoist_inter(merged), cuda)
+    itu = stage(wf.hoist_inter(merged), cuda)
     fields, starts = wf.scan_fields(wf.stack_plane(merged))
     plane = wf.init_plane(itu, pred, shape, cuda)
-    stacked = wf.expand(upload(fields, cuda), pw)
+    stacked = wf.expand(stage(fields, cuda), pw)
     n = merged.n_steps
     before = _build.LAUNCHES["scan"]
     got = wf.scan_plane(stacked, starts, n, plane.clone())
@@ -496,3 +497,48 @@ def test_conformance_streams_on_cuda_match_golden(cuda, name):
             assert np.array_equal(f.planes[c], g.planes[c]), (f.poc, c)
             assert np.array_equal(f.prefilter[c].cpu().numpy(),
                                   g.prefilter[c]), (f.poc, c)
+
+
+def test_staged_dispatches_with_a_two_slot_ring(cuda, monkeypatch):
+    """s1080_ldp16 (16 frames) through PipelinedTorchDecoder with the
+    staging ring at its least depth, two slots, so the worker refills a
+    slot right behind the copy that read it: every plane bit-exact vs the
+    port's golden; every staged leaf starts on 16 bytes; K1 copies no
+    operand to align it (_aligned); one h2d copy a dispatch."""
+    from p265_tpu_torch.kernels import staging
+    from p265_tpu_torch.pipeline import batch_decode as bd
+    from p265_tpu_torch.run_config import Dispatches
+    from p265_tpu_torch.testgen.streams import get_stream
+    data = get_stream("s1080_ldp16")
+    odd, clones = [], []
+    stage, aligned = bd.stage, itransform._aligned
+
+    def spy_stage(tree, device, stats=None):
+        out = stage(tree, device, stats)
+        odd.extend(t.data_ptr() % 16 for t in staging.leaves(out)
+                   if t.data_ptr() % 16)
+        return out
+
+    def spy_aligned(t):
+        if t is not None and t.data_ptr() % 16:
+            clones.append(tuple(t.shape))
+        return aligned(t)
+
+    monkeypatch.setattr(bd, "stage", spy_stage)
+    monkeypatch.setattr(itransform, "_aligned", spy_aligned)
+    staging.ring(cuda, slots=2)
+    try:
+        with Dispatches() as dispatches:
+            dec = PipelinedTorchDecoder(cuda)
+            got = dec.decode_stream(data)
+    finally:
+        staging.ring(cuda, slots=staging.RING_SLOTS)
+    gold = PortGolden().decode_stream(data)
+    assert [f.poc for f in got] == [g.poc for g in gold] and len(got) == 16
+    for f, g in zip(got, gold):
+        for c in range(3):
+            assert np.array_equal(f.planes[c], g.planes[c]), (f.poc, c)
+            assert np.array_equal(f.prefilter[c].cpu().numpy(),
+                                  g.prefilter[c]), (f.poc, c)
+    assert not odd and not clones
+    assert dec.stats["h2d_copies"] == len(dispatches) == 16

@@ -116,9 +116,9 @@ def _captured_pass(name: str, monkeypatch) -> dict:
         calls.append(("k2", (stacks, arrays, shapes, has_bi)))
         return orig[1](stacks, arrays, shapes, has_bi, out)
 
-    def scan(stacked, starts, n_steps, plane, after_step=None):
+    def scan(stacked, starts, n_steps, plane, after_step=None, **kw):
         calls.append(("scan", n_steps))
-        return orig[2](stacked, starts, n_steps, plane, after_step)
+        return orig[2](stacked, starts, n_steps, plane, after_step, **kw)
 
     monkeypatch.setattr(itransform, "batch_residual_grouped", k1)
     monkeypatch.setattr(bd, "mc_pred_planes", k2)

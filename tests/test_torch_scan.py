@@ -23,7 +23,7 @@ import p265_tpu.pipeline.wavefront as jwf
 from p265_tpu.golden.decoder import GoldenDecoder
 from p265_tpu.plan.frame_plan import build_tensor_plan as jax_tensor_plan
 from p265_tpu_torch.hls.params import PPS, SPS
-from p265_tpu_torch.kernels import upload
+from p265_tpu_torch.kernels.staging import stage
 from p265_tpu_torch.pipeline import wavefront as wf
 from p265_tpu_torch.testgen.encoder import IntraEncoder
 from p265_tpu_torch.testgen.scan_cases import (WIDE_TUS, random_scan,
@@ -72,10 +72,10 @@ def _packed(name):
     total_h, pw = merged.shape
     shape = (total_h + wf.GUARD, pw)
     pred = wf.attached_pred(pps, wf.segment_offsets(pps), shape, "cpu")
-    itu = upload(wf.hoist_inter(merged), "cpu")
+    itu = stage(wf.hoist_inter(merged), "cpu")
     fields, starts = wf.scan_fields(wf.stack_plane(merged))
     plane = wf.init_plane(itu, pred, shape, "cpu")
-    stacked = wf.expand(upload(fields, "cpu"), pw)
+    stacked = wf.expand(stage(fields, "cpu"), pw)
     n = merged.n_steps
     return (wf.pack_scan(stacked, starts, n, "cpu"), stacked, starts, n,
             plane, total_h)
