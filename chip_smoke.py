@@ -11,10 +11,14 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    once) and links them, timed.
 3. kernels vs plain: each grouped kernel against its plain torch version on
    the card, torch.equal, over sweeps of sizes, modes and MVs (to 300 px
-   outside the picture), each sweep packed as one multi-group launch (K1:
-   every size, DST, transform skip, bypass, scale_m, int16 and int32
-   levels, qp 0..51, saturating levels, TU counts that leave partial
-   tiles; the MC kernel with both epilogues: the 14-bit intermediates of
+   outside the picture), each sweep packed as one multi-group launch, at
+   the wire dtypes the kernels read (K1:
+   every size, DST, transform skip, bypass, uint8 scale_m and qp, int16
+   and int32 levels, qp 0..51, saturating levels, TU counts that leave
+   partial tiles; K1's plane epilogue, the hoisted inter TUs' add and clip
+   into a prediction plane or zeros, positions uint16 past 32767 and
+   int32, planes to 70000 columns; the MC kernel with both epilogues: the
+   14-bit intermediates of
    mc_blocks_grouped, and the finished samples of mc_pred_planes on 1080p
    pictures, uni, bi and weighted, with pad rows, into fresh planes and
    into two frames' segments of one tall plane that holds an earlier
@@ -22,13 +26,17 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    scan kernel against scan_packed_ref on random scans (every mode and
    size, every flag, unavailable references outside the plane, empty
    steps, flat and non-flat 32x32 edges; steps wider than the kernel's
-   warps; one TU a step), and a split run against one; the deblocking
+   warps; one TU a step; uint16 and int32 coordinates), and a split run
+   against one; the whole scan path (K1's epilogue, K1, the scan) of
+   planes 40000 and 70000 columns wide (testgen/scan_cases.py
+   coord_plane) against its CPU run; the deblocking
    kernel (both directions of a batch's luma and chroma in one launch,
    deblock_planes, at 1080p and 4K; and one direction, luma and chroma,
    as the row-sharded deblocking calls it) and the SAO kernel against
    their plain versions on random filter cases (testgen/filter_cases.py)
    at 1080p widths, on contiguous planes, transposed views and row views
-   of a taller plane, and the row-sharded SAO's halo blocks.
+   of a taller plane (the parameters int16 and int8), SAO's uint8 store
+   with and without bypass masks, and the row-sharded SAO's halo blocks.
 4. small streams: the committed 96x64 LDP, RA (bi-pred) and PCM LDP
    streams (PCM CUs in the I picture and in every P picture, whose MC runs
    through K2), PipelinedTorchDecoder on cuda vs the port's GoldenDecoder,
@@ -82,7 +90,9 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    view of its dispatch's one device buffer, and equal in dtype, shape and
    values to the same leaf uploaded alone, kernels/staging.py per_leaf;
    each call of the
-   five kernels torch.equal to its plain version; the MC row is the main
+   five kernels torch.equal to its plain version, the K1 calls with the
+   plane epilogue (init_plane's) each replayed into a copy of the plane as
+   it stood before the call; the MC row is the main
    path's mc_pred_planes, the interpolation, combine and placement of a
    picture in one launch, each call replayed into a zeroed copy of its
    tall plane against mc_pred_planes_ref): the CUDA-event
@@ -106,7 +116,9 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
 14. upload: one s1080_ldp4 pass under torch.profiler
    (run_config.profile_pass): its staging copies (one a dispatch) and
    bytes, and the device ms of every host-to-device copy in the trace (at
-   most the reference's per-dtype buffers, REF_BUFFERS a dispatch); then
+   most the reference's per-dtype buffers, REF_BUFFERS a dispatch), the
+   pass's device operations, and the calls of aten::_to_copy and
+   aten::where in the window (every thread); then
    `python -m p265_tpu_torch.profile_pack s1080_ldp4` as a subprocess,
    its one JSON line printed.
 15. measuring modules: `python -m p265_tpu_torch.bench --golden DIR` as a
@@ -272,8 +284,8 @@ def phase_compare(errs: dict) -> None:
     import torch
     from p265_tpu_torch.kernels import itransform, mc
     from p265_tpu_torch.pipeline import wavefront as wf
-    from p265_tpu_torch.testgen.scan_cases import (random_scan, wide_scan,
-                                                   work_items)
+    from p265_tpu_torch.testgen.scan_cases import (coord_plane, random_scan,
+                                                   wide_scan, work_items)
     from p265_tpu_torch.kernels.staging import stage
     from p265_tpu_torch.testgen import kernel_cases as kc
     dev = torch.device("cuda")
@@ -291,7 +303,30 @@ def phase_compare(errs: dict) -> None:
     log("itransform == plain: log2 2..5 in one launch, with/without "
         "scale_m, int32 and int16 levels, DST/tskip/bypass, qp 0..51 (the "
         "dequant's left shift included), levels to +-2^15, about 9, 150 "
-        "and 2000 TUs a size, each a partial last tile")
+        "and 2000 TUs a size, each a partial last tile; qp and scale_m "
+        "uint8")
+    for shape, n in (((1088, 1920), 400), ((128, 40000), 100),
+                     ((128, 70000), 100)):
+        for scale in (False, True):
+            groups = stage(kc.residual_groups(rng, n, scale, plane=shape),
+                           dev)
+            for base in (rng.integers(0, 256, shape), np.zeros(shape)):
+                plane = torch.from_numpy(base.astype(np.int32)).to(dev)
+                got = itransform.batch_residual_grouped(groups,
+                                                        plane=plane.clone())
+                want = itransform.batch_residual_grouped_ref(
+                    groups, plane=plane.clone())
+                torch.cuda.synchronize()
+                require(not torch.equal(want, plane), "itransform plane "
+                        "epilogue sweep added nothing")
+                errs["itransform"] = max(errs["itransform"], _max_err(
+                    [got], [want], f"itransform plane epilogue {shape} "
+                    f"scale_m={scale}"))
+    log("itransform plane epilogue == plain: every size in one launch, "
+        "each TU alone in a 32x32 tile, its residual added in place to a "
+        "random prediction plane and to zeros and clipped: 1088x1920 "
+        "(about 400 TUs a size), 128x40000 (uint16 positions past 32767) "
+        "and 128x70000 (int32), with/without scale_m")
     for far in (8, 300):
         groups = _mc_groups(rng, dev, far)
         got = mc.mc_blocks_grouped(groups)
@@ -306,15 +341,19 @@ def phase_compare(errs: dict) -> None:
     cases = [{}, {}, {}, dict(n_steps=4, per_size=560),
              dict(n_steps=64, one_a_step=True), dict(wide=True)]
     for case, kw in enumerate(cases):
+        coord = np.int32 if case % 2 else np.uint16
         if kw.get("wide"):
-            stacked, starts, n, plane = wide_scan(rng, dev)
+            stacked, starts, n, plane = wide_scan(rng, dev, coord=coord)
             items = work_items(starts, n)
             require(plane.shape[1] == 3840 and int(items.min())
                     > ctas * warps, f"scan sweep {case}: {items} work "
                     f"items a step, not all wider than {ctas * warps} warps")
         else:
-            stacked, starts, n, plane = random_scan(rng, dev, **kw)
+            stacked, starts, n, plane = random_scan(rng, dev, coord=coord,
+                                                    **kw)
         packed = wf.pack_scan(stacked, starts, n, dev)
+        require(packed.coord_wide == (coord == np.int32),
+                f"scan sweep {case}: coordinates not read as {coord}")
         widths = packed.step_tus[packed.step_tus > 0]
         if kw.get("per_size", 0) > 140:
             require(int(widths.min()) > ctas * warps,
@@ -343,7 +382,17 @@ def phase_compare(errs: dict) -> None:
         "steps of one TU each; one at 4K plane width of 4 steps of 430 work "
         "items (40 32x32 TUs of 8 items each), each step reading what "
         "earlier steps wrote; a split run [0, k) + [k, n) equal to one run "
-        "in each")
+        "in each; coordinates uint16 in three, int32 in three")
+    for cols in (40000, 70000):
+        pp = coord_plane(rng, (64, cols), exclusive=True, inter_pred=True)
+        got = wf.reconstruct_scan_plane(pp, dev)
+        want = wf.reconstruct_scan_plane(pp, "cpu")
+        torch.cuda.synchronize()
+        errs["scan"] = max(errs["scan"], _max_err(
+            [got.cpu()], [want], f"scan path of a {cols}-wide plane"))
+    log("scan path (K1's plane epilogue, K1, the scan) of 64-row planes "
+        "40000 (uint16 coordinates past 32767) and 70000 (int32) columns "
+        "wide == its CPU run")
     _filter_sweeps(rng, dev, errs)
 
 
@@ -440,12 +489,18 @@ def _filter_sweeps(rng, dev, errs: dict) -> None:
             c = fc.sao_case(rng, *shape, size)
             maps = [torch.from_numpy(c[k]).to(dev)
                     for k in ("ty", "cls", "offs")]
+            mask = torch.from_numpy(fc.bypass_masks(rng, *shape)).to(dev)
+            pres = fc.layouts(fc.planes(rng, *shape), dev)
             for name, src in fc.layouts(c["src"], dev).items():
-                got = lf.sao_apply(src, *maps, size)
-                want = lf.sao_apply_ref(src, *maps, size)
-                torch.cuda.synchronize()
-                errs["sao"] = max(errs["sao"], _max_err(
-                    [got], [want], f"sao ctb {size} {shape} {name}"))
+                for keep, dt in ((None, torch.int32),
+                                 (None, torch.uint8),
+                                 ((pres[name], mask), torch.uint8)):
+                    got = lf.sao_apply(src, *maps, size, keep, dt)
+                    want = lf.sao_apply_ref(src, *maps, size, keep, dt)
+                    torch.cuda.synchronize()
+                    errs["sao"] = max(errs["sao"], _max_err(
+                        [got], [want], f"sao ctb {size} {shape} {name} "
+                        f"{dt} masks={keep is not None}"))
     c = fc.sao_case(rng, 1, 1080, 1920, 64)
     maps = [torch.from_numpy(c[k][0]).to(dev) for k in ("ty", "cls", "offs")]
     # 4 blocks of 272 rows, the last 8 past the picture
@@ -464,8 +519,10 @@ def _filter_sweeps(rng, dev, errs: dict) -> None:
         "view and as rows of a taller plane; bS 0..2, beta 0..64, tc "
         "0..24, strong, normal and no filter.  sao == plain: CTB 64/32/16 "
         "(chroma 32/16/8) at 1080p in the same three layouts, every type "
-        "and edge class, band positions 0..31; the row-sharded SAO's 4 "
-        "blocks of 272 rows with halo rows (the last past the picture)")
+        "and edge class, band positions 0..31, int32 and uint8 out, and "
+        "uint8 with bypass masks (the prefilter samples restored); the "
+        "row-sharded SAO's 4 blocks of 272 rows with halo rows (the last "
+        "past the picture); deblocking grids int16, SAO maps int8")
 
 
 def _stream_bytes(fn: str) -> bytes:
@@ -1002,6 +1059,9 @@ def _capture_main_path(data: bytes) -> dict:
                 return out
             if name == "scan":
                 calls[name].append(((*a[:3], a[3].clone()), k))
+            elif name == "itransform" and k.get("plane") is not None:
+                # the epilogue writes into the plane: keep it as it was
+                calls[name].append((a, dict(k, plane=k["plane"].clone())))
             elif name in FILTERS:
                 calls[name].append(((fn, *map(_keep, a)), k))
             else:
@@ -1274,6 +1334,9 @@ def phase_timing(launches: dict, sharded: dict, dag: dict, errs: dict,
                 kern(*a, **kg)
                 plain(*a, **kw)
                 got, want = [kg["out"][0]], [kw["out"][0]]
+            elif k.get("plane") is not None:   # K1's epilogue, in place
+                got = [kern(*a, **dict(k, plane=k["plane"].clone()))]
+                want = [plain(*a, **dict(k, plane=k["plane"].clone()))]
             else:
                 got, want = kern(*a, **k), plain(*a, **k)
             if name == "sao":
@@ -1289,7 +1352,9 @@ def phase_timing(launches: dict, sharded: dict, dag: dict, errs: dict,
         dev_ms = _device_ms(kern, cl, symbol)
         plain_dev = _device_ms(plain, cl, None, reps=3)
         b = _bound(name, w, card, dev_ms or ms)
-        log(f"{name}: {len(cl)} calls per s1080_ldp4 pass; kernel "
+        epi = sum(k.get("plane") is not None for _, k in cl)
+        log(f"{name}: {len(cl)} calls per s1080_ldp4 pass "
+            f"({epi} with the plane epilogue); kernel "
             f"{k1:.4f}/{k2:.4f} ms (device time {dev_ms} ms), plain "
             f"{p1:.4f}/{p2:.4f} ms (device time {plain_dev} ms); census "
             f"{b['bytes']} bytes, {b['ops']} "
@@ -1336,8 +1401,10 @@ def phase_upload() -> None:
         f"copies, {pr['h2d_bytes']} bytes; {len(h2d)} host-to-device "
         f"copies in the trace, {sum(h2d):.4f} device ms (each: "
         + " ".join(f"{v:.4f}" for v in h2d) + f"); pass device "
-        f"{pr['device_ms']:.4f} ms over {pr['ops']} operations, idle share "
-        f"{pr['idle']:.4f}")
+        f"{pr['device_ms']:.4f} ms over {pr['ops']} device operations, "
+        f"idle share {pr['idle']:.4f}; host operators in the window (every "
+        "thread): " + ", ".join(f"{k} {v}" for k, v in
+                                pr["op_counts"].items()))
     require(pr["h2d_copies"] == N_FRAMES,
             f"{pr['h2d_copies']} staging copies for {N_FRAMES} dispatches")
     require(0 < len(h2d) <= REF_BUFFERS * N_FRAMES,

@@ -42,7 +42,7 @@ def k1_inputs(rng, log2: int, n: int) -> dict:
     lv = ((rng.random((n, s, s)) < 0.2)
           * rng.integers(-200, 200, (n, s, s))).astype(np.int16)
     z = np.zeros(n, bool)
-    return dict(coeffs=lv, qp=rng.integers(20, 45, n).astype(np.int32),
+    return dict(coeffs=lv, qp=rng.integers(20, 45, n).astype(np.uint8),
                 is_dst=z, tskip=z, bypass=z)
 
 

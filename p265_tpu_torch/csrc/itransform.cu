@@ -40,7 +40,17 @@
 //   stage-1 stores of a warp's 8 rows fall on distinct banks) and reads
 //   levels and writes residuals 16 bytes a thread, coalesced;
 // - dequantizes each sample once (transform skip on the flat matrix) and
-//   finishes transform-skip and bypass TUs in that pass.
+//   finishes transform-skip and bypass TUs in that pass;
+// - reads the reference's wire dtypes as they were staged: qp and scale_m
+//   uint8 (a 4x4 TU's scale_m is 16 bytes, so a tile's scale_m still goes
+//   by 16-byte cp.async from a leaf on 64 bytes), levels int16 (int32 for
+//   the callers that pass it), TU positions uint16 or int32;
+// - has two epilogues: the residuals into an int32 buffer (the scan's
+//   TUs), or, for the hoisted inter TUs, in place into the tall plane that
+//   holds their prediction: plane[y][x] = clip(plane[y][x] + residual, 0,
+//   255) at each TU's position, 16 bytes a thread where the row is aligned
+//   (the counterpart of the reference's flat scatter and clip,
+//   p265_tpu/pipeline/batch_decode.py:397-431).
 // The tensor cores are not used: their integer path takes int8 operands,
 // so the 16-bit dequantized levels would need a split into limbs (the
 // reference's _limb_matmul) with int32 recombination, and the int32 lanes
@@ -58,7 +68,7 @@ constexpr int kTileTus = 64;  // TUs of a tile of 4x4 TUs, the most
 constexpr int kBitDepth = 8;
 constexpr int kShift2 = 20 - kBitDepth;
 constexpr int kMaxGroups = 4;
-constexpr int kTableCols = 10;
+constexpr int kTableCols = 11;
 // consts: [DCT 4x4][DCT 8x8][DCT 16x16][DCT 32x32][DST 4x4][levelScale 6]
 constexpr int kDstOff = 16 + 64 + 256 + 1024;
 constexpr int kLsOff = kDstOff + 16;
@@ -67,11 +77,12 @@ constexpr int kDst = 1, kTskip = 2, kBypass = 4;
 
 struct ItGroup {
   const void* levels;       // [n,s,s] int16 or int32, 16-byte aligned
-  const int32_t* qp;        // [n]
+  const uint8_t* qp;        // [n]
   const uint8_t* is_dst;    // [n] bool, or null: no DST
   const uint8_t* tskip;     // [n] bool
   const uint8_t* bypass;    // [n] bool, or null
-  const int32_t* scale_m;   // [n,s,s], 16-byte aligned, or null: flat 16
+  const uint8_t* scale_m;   // [n,s,s], 16-byte aligned, or null: flat 16
+  const void* pos;          // [n,2] (row, col) uint16 or int32; plane only
   int64_t out;              // element offset of the group's [n,s,s] output
   int n, log2, wide;        // wide: levels are int32
   int first_cta;            // first CTA of the group
@@ -81,6 +92,11 @@ struct ItParams {
   ItGroup g[kMaxGroups];
   int n_groups, tiles_per_cta;
   const int32_t* consts;
+  int32_t* out;             // the residuals, or null: the plane epilogue
+  int32_t* plane;           // [rows, pitch], updated in place, or null
+  int64_t pitch;
+  int pos_wide;             // positions are int32 (else uint16)
+  int vec;                  // plane rows take 16-byte accesses
 };
 
 template <int LOG2>
@@ -102,10 +118,11 @@ static_assert(Geo<2>::TPB * Geo<2>::BLK <= kBlockInts &&
 
 struct ItSmem {
   int4 lv[2][kTile / 4];    // staged levels (int16 pairs or int32)
-  int4 sm[2][kTile / 4];    // staged scale_m
+  int4 sm[2][kTile / 16];   // staged scale_m (uint8)
   int4 d[kBlockInts / 4];   // dequantized block, then the residual
   int4 t[kBlockInts / 4];   // stage-1 output
   int qp[2][kTileTus], fl[2][kTileTus];
+  int py[2][kTileTus], px[2][kTileTus];   // TU positions (plane epilogue)
   int ls[8];                // levelScale
 };
 
@@ -160,17 +177,21 @@ __device__ __forceinline__ void stage_tile(const ItGroup& g, int tile, int h,
   const char* lv = static_cast<const char*>(g.levels) + e0 * esz;
   for (int c = threadIdx.x; c < nt * C::SS * esz / 16; c += kThreads)
     cp_async16(&sm.lv[h][c], lv + 16 * c);
-  if (g.scale_m) {
-    const char* sc = reinterpret_cast<const char*>(g.scale_m + e0);
-    for (int c = threadIdx.x; c < nt * C::SS / 4; c += kThreads)
+  if (g.scale_m) {   // a 4x4 TU's matrix is 16 bytes: whole chunks
+    const uint8_t* sc = g.scale_m + e0;
+    for (int c = threadIdx.x; c < nt * C::SS / 16; c += kThreads)
       cp_async16(&sm.sm[h][c], sc + 16 * c);
   }
 }
 
-// qp and flags of TU threadIdx.x of tile `tile` (loads left in flight)
+// qp, flags and (with a plane) position of TU threadIdx.x of tile `tile`
+// (loads left in flight).  A uint16 coordinate is read as uint16_t:
+// columns and rows of 32768 and more stay positive.
 template <int LOG2>
-__device__ __forceinline__ void tile_records(const ItGroup& g, int tile,
-                                             int& qp, int& fl) {
+__device__ __forceinline__ void tile_records(const ItParams& p,
+                                             const ItGroup& g, int tile,
+                                             int& qp, int& fl, int& py,
+                                             int& px) {
   using C = Geo<LOG2>;
   const int u = tile * C::TPB + static_cast<int>(threadIdx.x);
   if (static_cast<int>(threadIdx.x) < C::TPB && u < g.n) {
@@ -178,20 +199,29 @@ __device__ __forceinline__ void tile_records(const ItGroup& g, int tile,
     fl = (LOG2 == 2 && g.is_dst && g.is_dst[u] ? kDst : 0) |
          (LOG2 == 2 && g.tskip[u] ? kTskip : 0) |
          (g.bypass && g.bypass[u] ? kBypass : 0);
+    if (p.plane) {
+      if (p.pos_wide) {
+        const int32_t* q = static_cast<const int32_t*>(g.pos) + 2 * u;
+        py = q[0], px = q[1];
+      } else {
+        const uint16_t* q = static_cast<const uint16_t*>(g.pos) + 2 * u;
+        py = q[0], px = q[1];
+      }
+    }
   }
 }
 
 template <int LOG2>
-__device__ __forceinline__ void it_cta(const ItGroup& g,
-                                       const int32_t* __restrict__ consts,
-                                       int cta, int per_cta, ItSmem& sm,
-                                       int32_t* __restrict__ out) {
+__device__ __forceinline__ void it_cta(const ItParams& prm, const ItGroup& g,
+                                       int cta, ItSmem& sm) {
   using C = Geo<LOG2>;
   constexpr int S = C::S, SS = C::SS, TPB = C::TPB, P = C::P, BLK = C::BLK;
   constexpr int H2 = C::H2, Q = C::Q;
   constexpr int BD = kBitDepth + LOG2 - 5;
   constexpr int RND2 = 1 << (kShift2 - 1);
   const int tid = threadIdx.x;
+  const int32_t* __restrict__ consts = prm.consts;
+  const int per_cta = prm.tiles_per_cta;
   const int tiles = (g.n + TPB - 1) / TPB;
   const int t0 = cta * per_cta, t1 = min(t0 + per_cta, tiles);
   int* d = reinterpret_cast<int*>(sm.d);
@@ -214,11 +244,13 @@ __device__ __forceinline__ void it_cta(const ItGroup& g,
     }
   }
 
-  int nq = 0, nf = 0;   // the next tile's record of TU tid
+  int nq = 0, nf = 0, ny = 0, nx = 0;   // the next tile's record of TU tid
   if (t0 < t1) {
     stage_tile<LOG2>(g, t0, 0, sm);
-    tile_records<LOG2>(g, t0, nq, nf);
-    if (tid < TPB) sm.qp[0][tid] = nq, sm.fl[0][tid] = nf;
+    tile_records<LOG2>(prm, g, t0, nq, nf, ny, nx);
+    if (tid < TPB)
+      sm.qp[0][tid] = nq, sm.fl[0][tid] = nf, sm.py[0][tid] = ny,
+      sm.px[0][tid] = nx;
   }
   cp_async_commit();
   for (int t = t0; t < t1; ++t) {
@@ -226,7 +258,7 @@ __device__ __forceinline__ void it_cta(const ItGroup& g,
     const bool more = t + 1 < t1;
     if (more) {
       stage_tile<LOG2>(g, t + 1, nxt, sm);
-      tile_records<LOG2>(g, t + 1, nq, nf);
+      tile_records<LOG2>(prm, g, t + 1, nq, nf, ny, nx);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -248,7 +280,7 @@ __device__ __forceinline__ void it_cta(const ItGroup& g,
         for (int i = 0; i < 4; ++i) lvl[i] = v[i];
       }
       if (g.scale_m) {
-        const int4 v = sm.sm[cur][e];
+        const uchar4 v = reinterpret_cast<const uchar4*>(sm.sm[cur])[e];
         m[0] = v.x, m[1] = v.y, m[2] = v.z, m[3] = v.w;
       }
       const int qp = sm.qp[cur][u], fl = sm.fl[cur][u];
@@ -354,32 +386,57 @@ __device__ __forceinline__ void it_cta(const ItGroup& g,
     }
     __syncthreads();
 
-    // the residuals out, 16 bytes a thread
-    int32_t* o = out + g.out + static_cast<int64_t>(tu0) * SS;
-    for (int e = tid; e < nt * SS / 4; e += kThreads) {
-      const int u = e / (SS / 4), k4 = e % (SS / 4) * 4;
-      *reinterpret_cast<int4*>(o + 4 * e) =
-          *reinterpret_cast<const int4*>(d + u * BLK + k4 / S * P + k4 % S);
+    if (prm.plane) {
+      // the plane epilogue: 4 samples of a TU row a thread, added to the
+      // prediction the plane holds and clipped, in place
+      for (int e = tid; e < nt * SS / 4; e += kThreads) {
+        const int u = e / (SS / 4), k4 = e % (SS / 4) * 4;
+        const int4 r =
+            *reinterpret_cast<const int4*>(d + u * BLK + k4 / S * P + k4 % S);
+        const int x = sm.px[cur][u] + k4 % S;
+        int32_t* dst = prm.plane +
+                       static_cast<int64_t>(sm.py[cur][u] + k4 / S) *
+                           prm.pitch + x;
+        if (prm.vec && (x & 3) == 0) {
+          const int4 v = *reinterpret_cast<const int4*>(dst);
+          *reinterpret_cast<int4*>(dst) = make_int4(
+              min(max(v.x + r.x, 0), 255), min(max(v.y + r.y, 0), 255),
+              min(max(v.z + r.z, 0), 255), min(max(v.w + r.w, 0), 255));
+        } else {
+          dst[0] = min(max(dst[0] + r.x, 0), 255);
+          dst[1] = min(max(dst[1] + r.y, 0), 255);
+          dst[2] = min(max(dst[2] + r.z, 0), 255);
+          dst[3] = min(max(dst[3] + r.w, 0), 255);
+        }
+      }
+    } else {
+      // the residuals out, 16 bytes a thread
+      int32_t* o = prm.out + g.out + static_cast<int64_t>(tu0) * SS;
+      for (int e = tid; e < nt * SS / 4; e += kThreads) {
+        const int u = e / (SS / 4), k4 = e % (SS / 4) * 4;
+        *reinterpret_cast<int4*>(o + 4 * e) =
+            *reinterpret_cast<const int4*>(d + u * BLK + k4 / S * P + k4 % S);
+      }
     }
-    if (more && tid < TPB) sm.qp[nxt][tid] = nq, sm.fl[nxt][tid] = nf;
+    if (more && tid < TPB)
+      sm.qp[nxt][tid] = nq, sm.fl[nxt][tid] = nf, sm.py[nxt][tid] = ny,
+      sm.px[nxt][tid] = nx;
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
-itransform_grouped_kernel(const __grid_constant__ ItParams p,
-                          int32_t* __restrict__ out) {
+itransform_grouped_kernel(const __grid_constant__ ItParams p) {
   __shared__ ItSmem sm;
   int gi = 0;   // the last group that starts at or before this CTA
   for (int i = 1; i < p.n_groups; ++i)
     if (static_cast<int>(blockIdx.x) >= p.g[i].first_cta) gi = i;
   const ItGroup& gr = p.g[gi];
   const int cta = static_cast<int>(blockIdx.x) - gr.first_cta;
-  const int per = p.tiles_per_cta;
   switch (gr.log2) {   // uniform across the CTA
-    case 2: it_cta<2>(gr, p.consts, cta, per, sm, out); break;
-    case 3: it_cta<3>(gr, p.consts, cta, per, sm, out); break;
-    case 4: it_cta<4>(gr, p.consts, cta, per, sm, out); break;
-    case 5: it_cta<5>(gr, p.consts, cta, per, sm, out); break;
+    case 2: it_cta<2>(p, gr, cta, sm); break;
+    case 3: it_cta<3>(p, gr, cta, sm); break;
+    case 4: it_cta<4>(p, gr, cta, sm); break;
+    case 5: it_cta<5>(p, gr, cta, sm); break;
     default: break;
   }
 }
@@ -392,32 +449,45 @@ cudaError_t p265_resident_ctas(const void* kernel, int threads, int smem,
 
 // table: n_groups rows of kTableCols int64 (host memory):
 //   levels, qp, is_dst|0, tskip, bypass|0, scale_m|0 (device pointers;
-//   levels and scale_m 16-byte aligned), out offset, n, log2, wide.
-//   consts: the device tables laid out as above.
+//   levels and scale_m 16-byte aligned; qp and scale_m uint8), out offset,
+//   n, log2, wide, pos|0 ([n,2] uint16, or int32 with pos_wide).
+//   consts: the device tables laid out as above.  out: the residuals
+//   (every group at its out offset); or, with plane non-null, out is
+//   unused and each TU's residual is added to plane [rows, pitch] int32 at
+//   its position and clipped to 0..255, in place (every group needs pos).
 extern "C" int p265_itransform_grouped(const int64_t* table, int n_groups,
                                        const int32_t* consts, int32_t* out,
-                                       cudaStream_t stream) {
-  if (n_groups <= 0 || n_groups > kMaxGroups)
+                                       int32_t* plane, int64_t pitch,
+                                       int pos_wide, cudaStream_t stream) {
+  if (n_groups <= 0 || n_groups > kMaxGroups || (!plane && !out) ||
+      (plane && pitch <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   ItParams p{};
   p.n_groups = n_groups;
   p.consts = consts;
+  p.out = plane ? nullptr : out;
+  p.plane = plane;
+  p.pitch = pitch;
+  p.pos_wide = pos_wide;
+  p.vec = plane && pitch % 4 == 0 &&
+          reinterpret_cast<uintptr_t>(plane) % 16 == 0;
   int tiles[kMaxGroups], total = 0;
   for (int i = 0; i < n_groups; ++i) {
     const int64_t* t = table + static_cast<int64_t>(i) * kTableCols;
     ItGroup& g = p.g[i];
     g.levels = reinterpret_cast<const void*>(t[0]);
-    g.qp = reinterpret_cast<const int32_t*>(t[1]);
+    g.qp = reinterpret_cast<const uint8_t*>(t[1]);
     g.is_dst = reinterpret_cast<const uint8_t*>(t[2]);
     g.tskip = reinterpret_cast<const uint8_t*>(t[3]);
     g.bypass = reinterpret_cast<const uint8_t*>(t[4]);
-    g.scale_m = reinterpret_cast<const int32_t*>(t[5]);
+    g.scale_m = reinterpret_cast<const uint8_t*>(t[5]);
     g.out = t[6];
     g.n = static_cast<int>(t[7]);
     g.log2 = static_cast<int>(t[8]);
     g.wide = static_cast<int>(t[9]);
+    g.pos = reinterpret_cast<const void*>(t[10]);
     if (g.log2 < 2 || g.log2 > 5 || g.n < 0 || t[0] % 16 != 0 ||
-        t[5] % 16 != 0)
+        t[5] % 16 != 0 || (plane && !g.pos))
       return static_cast<int>(cudaErrorInvalidValue);
     const int tpb = kTile >> (2 * g.log2);
     tiles[i] = (g.n + tpb - 1) / tpb;
@@ -438,6 +508,6 @@ extern "C" int p265_itransform_grouped(const int64_t* table, int n_groups,
     p.g[i].first_cta = ctas;
     ctas += (tiles[i] + p.tiles_per_cta - 1) / p.tiles_per_cta;
   }
-  itransform_grouped_kernel<<<ctas, kThreads, 0, stream>>>(p, out);
+  itransform_grouped_kernel<<<ctas, kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

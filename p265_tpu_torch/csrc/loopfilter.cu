@@ -38,6 +38,10 @@
 //   into beta as the tile loads its segments' parameters, once.  The
 //   single-direction calls (the row-sharded deblocking, on any strides)
 //   run the same kernel without the second pass and the row halo;
+// - both read their parameters at the reference's wire dtypes, as a
+//   dispatch stages them (kernels/loopfilter.py pack_filter_params): the
+//   deblocking's bS, beta and tc grids int16, SAO's type, class and offset
+//   maps int8;
 // - SAO (`sao_tiles`): a CTA per 64x32 tile aligned to the CTB grid in
 //   picture rows (the first and last tile of a band of rows may be
 //   partial).  It loads the parameters of the tile's CTBs (one CTB for
@@ -48,6 +52,11 @@
 //   no thread divides.  A row offset, the picture's height and halo rows
 //   let the row-sharded SAO (shard/filters.py) filter a band of rows
 //   through the same kernel; rows past the CTB map take its last CTB row.
+//   Its store is the end of the dispatch's filter chain (the counterpart
+//   of p265_tpu/pipeline/batch_decode.py:476-480): it writes uint8 (or
+//   int32) samples, and where a bypass mask is given, the prefilter sample
+//   in place of the filtered one (mask ? prefilter : sao(deblocked)), so
+//   no restore or cast follows it.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -99,9 +108,9 @@ static_assert((kTileH + 2 * kHalo) * kEdges <= kThreads,
 struct DbGroup {
   const int32_t* in;
   int32_t* out;
-  const int32_t* v[3];   // bS, beta, tc of the vertical edges
+  const int16_t* v[3];   // bS, beta, tc of the vertical edges
                          // [B, H/4, n_ev] (bS, beta null for chroma)
-  const int32_t* h[3];   // of the horizontal edges [B, W/4, n_eh]
+  const int16_t* h[3];   // of the horizontal edges [B, W/4, n_eh]
   long long ib, iy, ix;  // input strides, in elements
   long long ob, oy, ox;  // output strides
   int B, H, W, n_ev, n_eh, chroma;
@@ -337,10 +346,14 @@ constexpr int kMaxCtbs = (kSaoW / kMinCtb) * (kSaoH / kMinCtb);
 
 struct SaoParams {
   const int32_t* src;    // [B, H + 2 * src_row0, W], strided
-  int32_t* out;          // [B, H, W] contiguous
-  const int32_t* ty;     // [B, ny, nx]
-  const int32_t* cls;    // [B, ny, nx]
-  const int32_t* off;    // [B, 4, ny, nx]
+  void* out;             // [B, H, W] contiguous, uint8 or int32
+  const int8_t* ty;      // [B, ny, nx]
+  const int8_t* cls;     // [B, ny, nx]
+  const int8_t* off;     // [B, 4, ny, nx]
+  const int32_t* pre;    // [B, H, W] strided: the prefilter samples
+  const uint8_t* mask;   // [B, H, W] contiguous bool, or null: bypass
+  long long pb, py, px;  // pre's strides, in elements
+  int out_u8;
   int B, H, W;
   long long sb, sy, sx;  // source strides, in elements
   int src_row0;          // source row of output row 0 (1: a halo row above)
@@ -392,7 +405,7 @@ sao_tiles(const __grid_constant__ SaoParams p) {
     const long long c = (static_cast<long long>(b) * p.ny + cy) * p.nx + cx;
     c_ty[i] = p.ty[c];
     c_cls[i] = p.cls[c];
-    const int32_t* off = p.off + b * 3 * plane + c;  // off[b, k, cy, cx]
+    const int8_t* off = p.off + b * 3 * plane + c;  // off[b, k, cy, cx]
 #pragma unroll
     for (int k = 0; k < 4; ++k) c_off[k][i] = off[k * plane];
   }
@@ -400,7 +413,7 @@ sao_tiles(const __grid_constant__ SaoParams p) {
   __syncthreads();
 
   // a thread 4 adjacent samples of a row, all of one CTB (CTBs >= 8)
-  int32_t* out = p.out + static_cast<long long>(b) * p.H * p.W;
+  const long long out0 = static_cast<long long>(b) * p.H * p.W;
   for (int i = tid; i < kSaoH * (kSaoW / 4); i += kThreads) {
     const int r = i / (kSaoW / 4), x = x0 + 4 * (i % (kSaoW / 4));
     const int gy = g0 + r;
@@ -435,14 +448,34 @@ sao_tiles(const __grid_constant__ SaoParams p) {
       }
       res[j] = clip3(s + delta, 0, 255);
     }
-    int32_t* o = out + static_cast<long long>(gy - p.row0) * p.W;
-    if (p.vec_out && x + 4 <= p.W) {
-      *reinterpret_cast<int4*>(o + x) = make_int4(res[0], res[1], res[2],
-                                                  res[3]);
-    } else {
+    const long long row = out0 + static_cast<long long>(gy - p.row0) * p.W;
+    if (p.mask) {   // bypass samples keep their prefilter values
+      const uint8_t* mk = p.mask + row;
+      const int32_t* pr = p.pre + b * p.pb + (gy - p.row0) * p.py;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (x + j < p.W) o[x + j] = res[j];
+        if (x + j < p.W && mk[x + j]) res[j] = pr[(x + j) * p.px];
+    }
+    if (p.out_u8) {
+      uint8_t* o = static_cast<uint8_t*>(p.out) + row;
+      if (p.vec_out && x + 4 <= p.W) {
+        *reinterpret_cast<uchar4*>(o + x) =
+            make_uchar4(res[0], res[1], res[2], res[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (x + j < p.W) o[x + j] = static_cast<uint8_t>(res[j]);
+      }
+    } else {
+      int32_t* o = static_cast<int32_t*>(p.out) + row;
+      if (p.vec_out && x + 4 <= p.W) {
+        *reinterpret_cast<int4*>(o + x) = make_int4(res[0], res[1], res[2],
+                                                    res[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (x + j < p.W) o[x + j] = res[j];
+      }
     }
   }
 }
@@ -467,8 +500,8 @@ extern "C" int p265_deblock(const int64_t* table, int n_groups, int both,
     g.in = reinterpret_cast<const int32_t*>(q[0]);
     g.out = reinterpret_cast<int32_t*>(q[1]);
     for (int k = 0; k < 3; ++k) {
-      g.v[k] = reinterpret_cast<const int32_t*>(q[2 + k]);
-      g.h[k] = reinterpret_cast<const int32_t*>(q[5 + k]);
+      g.v[k] = reinterpret_cast<const int16_t*>(q[2 + k]);
+      g.h[k] = reinterpret_cast<const int16_t*>(q[5 + k]);
     }
     g.chroma = static_cast<int>(q[8]);
     g.B = static_cast<int>(q[9]);
@@ -509,16 +542,19 @@ extern "C" int p265_deblock(const int64_t* table, int n_groups, int both,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q: 19 int64 (host memory): src, out, ty, cls, off (device pointers),
-//   B, H, W, src strides (b, y, x), src_row0, row0, total_h, ny, nx, ctb,
-//   and the type values of band offset and of edge offset.
+// q: 25 int64 (host memory): src, out, ty, cls, off (device pointers;
+//   the maps int8), B, H, W, src strides (b, y, x), src_row0, row0,
+//   total_h, ny, nx, ctb, the type values of band offset and of edge
+//   offset, out_u8 (out is uint8, else int32), pre, mask (device
+//   pointers, or 0 for no bypass restore; mask contiguous bool [B,H,W]),
+//   pre strides (b, y, x).
 extern "C" int p265_sao(const int64_t* q, cudaStream_t stream) {
   SaoParams p{};
   p.src = reinterpret_cast<const int32_t*>(q[0]);
-  p.out = reinterpret_cast<int32_t*>(q[1]);
-  p.ty = reinterpret_cast<const int32_t*>(q[2]);
-  p.cls = reinterpret_cast<const int32_t*>(q[3]);
-  p.off = reinterpret_cast<const int32_t*>(q[4]);
+  p.out = reinterpret_cast<void*>(q[1]);
+  p.ty = reinterpret_cast<const int8_t*>(q[2]);
+  p.cls = reinterpret_cast<const int8_t*>(q[3]);
+  p.off = reinterpret_cast<const int8_t*>(q[4]);
   p.B = static_cast<int>(q[5]);
   p.H = static_cast<int>(q[6]);
   p.W = static_cast<int>(q[7]);
@@ -533,6 +569,12 @@ extern "C" int p265_sao(const int64_t* q, cudaStream_t stream) {
   const long long ctb = q[16];
   p.band = static_cast<int>(q[17]);
   p.edge = static_cast<int>(q[18]);
+  p.out_u8 = static_cast<int>(q[19]);
+  p.pre = reinterpret_cast<const int32_t*>(q[20]);
+  p.mask = reinterpret_cast<const uint8_t*>(q[21]);
+  p.pb = q[22];
+  p.py = q[23];
+  p.px = q[24];
   p.lg = 0;
   while ((1LL << p.lg) < ctb) ++p.lg;
   // CTBs of a power of two from 8 (a tile holds at most kMaxCtbs, and 4
@@ -542,10 +584,15 @@ extern "C" int p265_sao(const int64_t* q, cudaStream_t stream) {
       (1LL << p.lg) != ctb || p.ny <= 0 || p.nx <= 0 ||
       static_cast<long long>(p.nx) * ctb < p.W || p.src_row0 < 0 ||
       p.row0 < 0 ||
-      (p.src_row0 == 0 && (p.row0 > 0 || p.row0 + p.H < p.total_h)))
+      (p.src_row0 == 0 && (p.row0 > 0 || p.row0 + p.H < p.total_h)) ||
+      !p.out || (p.mask && !p.pre))
     return static_cast<int>(cudaErrorInvalidValue);
   p.vec_in = dense16(p.src, p.sb, p.sy, p.sx);
-  p.vec_out = dense16(p.out, static_cast<long long>(p.H) * p.W, p.W, 1);
+  // 4 samples a store: 16 bytes of int32, or 4 of uint8
+  p.vec_out = p.out_u8 ? p.W % 4 == 0 &&
+                             reinterpret_cast<uintptr_t>(p.out) % 4 == 0
+                       : dense16(p.out, static_cast<long long>(p.H) * p.W,
+                                 p.W, 1);
   p.tiles_x = (p.W + kSaoW - 1) / kSaoW;
   p.tile_row0 = p.row0 / kSaoH;
   p.tiles_y = (p.row0 + p.H + kSaoH - 1) / kSaoH - p.tile_row0;

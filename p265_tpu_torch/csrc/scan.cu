@@ -38,8 +38,20 @@
 //   different SMs; a step wider than the warps loops;
 // - only the gather waits for the barrier: the step starts of the launch's
 //   range sit in shared memory, and each warp loads its next item's mode,
-//   flags, position, reference indices, ref_ok and residual into registers
-//   between its arrive and its wait, so those loads overlap the barrier.
+//   flags, position, reference coordinates, ref_ok and residual into
+//   registers between its arrive and its wait, so those loads overlap the
+//   barrier.
+// - the bucket record is the reference's wire format as a dispatch stages
+//   it (p265_tpu/pipeline/wavefront.py _stack_plane): reference rows and
+//   columns and TU positions at one coordinate dtype a launch (uint16, or
+//   int32 for planes of 65000 rows or columns and more; a uint16 is read
+//   as uint16_t, so coordinates of 32768 and more stay positive), modes
+//   uint8, flags as bytes.  The kernel is a template on the coordinate
+//   type, one instantiation a launch; a warp keeps an item's raw rows and
+//   columns in registers and forms each reference's flat index row * pw +
+//   column, in 64 bits, after the barrier, where the gather needs it (a
+//   multiply before the wait would hold the warp for the coordinates'
+//   loads, which the barrier otherwise hides).
 //   After the wait the chain is: gather from the plane, smooth, predict,
 //   add, store.  (Loading two steps ahead, into a second set of registers,
 //   measured no faster on an H100.)
@@ -48,6 +60,7 @@
 //   not carried over, but its index clamps are.
 // barrier_only walks the same steps and barriers and loads or computes
 // nothing else: the floor of the step chain, for measurement.
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -67,7 +80,7 @@ constexpr int kWarps = P265_SCAN_WARPS;   // 1..16
 static_assert(kCtas >= 1 && kCtas <= 16 && kWarps >= 1 && kWarps <= 16,
               "launch shape");
 constexpr int kMaxBuckets = 4;
-constexpr int kTableCols = 9;
+constexpr int kTableCols = 10;
 constexpr int kModes = 35;
 constexpr int kMaxRefs = 4 * 32 + 2;   // left(0..2s) then top(0..2s)
 constexpr int kMaxExt = 3 * 32 + 2;    // ref[-s..2s] and one zero slot
@@ -77,13 +90,14 @@ constexpr int kResSlots = kPart / 32;             // residuals a lane holds
 constexpr int kMaxDevices = 64;
 
 struct ScanBucket {
-  const int64_t* ref_idx;         // [n, 4s+2] flat plane indices
+  const void* ref_ys;             // [n, 4s+2] reference rows (coordinate)
+  const void* ref_xs;             // [n, 4s+2] reference columns
   const uint8_t* ref_ok;          // [n, 4s+2] bool
-  const int32_t* mode;            // [n]
+  const uint8_t* mode;            // [n]
   const uint8_t* filter_flag;     // [n] bool
   const uint8_t* strong_allowed;  // [n] bool
   const uint8_t* dc_edge;         // [n] bool
-  const int64_t* pos;             // [n, 2] (row, col) in the plane
+  const void* pos;                // [n, 2] (row, col) in the plane
   const int32_t* residual;        // [n, s, s]
   int log2;
   int parts;                      // work items a TU: s * s / kPart, or 1
@@ -112,8 +126,8 @@ struct TuOps {
   int q;
   int mode;
   bool filt, strong_ok, edge;
-  int64_t py, px;
-  int64_t idx[kRefSlots];
+  int py, px;
+  int ys[kRefSlots], xs[kRefSlots];   // the references' rows and columns
   bool ok[kRefSlots];
   int res[kResSlots];
 };
@@ -136,10 +150,17 @@ __device__ __forceinline__ int next_live(const ScanParams& p, const int* sh,
   return kk;
 }
 
+// Coordinate i of an array of C (uint16_t or int32_t; read-only path).
+template <typename C>
+__device__ __forceinline__ int coord(const void* a, int64_t i) {
+  return static_cast<int>(__ldg(static_cast<const C*>(a) + i));
+}
+
 // Work item j of step kk, the larger buckets first and the parts of a TU
 // next to each other (so on different CTAs) -> its operands (log2 0 when
 // the step has fewer than j + 1 items).  Loads only what does not depend
 // on the plane, through the read-only path.
+template <typename C>
 __device__ __forceinline__ void fetch(const ScanParams& p, const int* sh,
                                       int len, int kk, int j, int lane,
                                       TuOps& t) {
@@ -169,15 +190,16 @@ __device__ __forceinline__ void fetch(const ScanParams& p, const int* sh,
   t.filt = __ldg(B.filter_flag + u) != 0;
   t.strong_ok = __ldg(B.strong_allowed + u) != 0;
   t.edge = __ldg(B.dc_edge + u) != 0;
-  t.py = __ldg(B.pos + 2 * static_cast<int64_t>(u));
-  t.px = __ldg(B.pos + 2 * static_cast<int64_t>(u) + 1);
+  t.py = coord<C>(B.pos, 2 * static_cast<int64_t>(u));
+  t.px = coord<C>(B.pos, 2 * static_cast<int64_t>(u) + 1);
   const int64_t ro = static_cast<int64_t>(u) * R;
 #pragma unroll
   for (int i = 0; i < kRefSlots; ++i) {
     const int q = lane + 32 * i;
     if (q < R) {
       t.ok[i] = __ldg(B.ref_ok + ro + q) != 0;
-      t.idx[i] = __ldg(B.ref_idx + ro + q);
+      t.ys[i] = coord<C>(B.ref_ys, ro + q);
+      t.xs[i] = coord<C>(B.ref_xs, ro + q);
     }
   }
   const int32_t* res =
@@ -206,7 +228,10 @@ __device__ __forceinline__ void predict_tu(const ScanParams& p,
 #pragma unroll
   for (int i = 0; i < (R + 31) / 32; ++i) {
     const int q = lane + 32 * i;
-    if (q < R) raw[q] = t.ok[i] ? __ldcg(p.plane + t.idx[i]) : 128;
+    if (q < R)
+      raw[q] = t.ok[i] ? __ldcg(p.plane + static_cast<int64_t>(t.ys[i]) *
+                                              p.pw + t.xs[i])
+                       : 128;
   }
   __syncwarp();
 
@@ -306,7 +331,7 @@ __device__ __forceinline__ void predict_tu(const ScanParams& p,
           v = min(max(L[1] + ((T[x + 1] - T[0]) >> 1), 0), 255);
       }
       v = min(max(v + t.res[k], 0), 255);
-      p.plane[(t.py + y) * p.pw + t.px + x] = v;
+      p.plane[static_cast<int64_t>(t.py + y) * p.pw + t.px + x] = v;
     }
   }
 }
@@ -331,7 +356,49 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+// Every 128-byte line of bytes [a, b) of `base` into L2, the lines
+// dealt over the cluster's threads (thread `tid` of `nth`).
+__device__ __forceinline__ void prefetch_l2(const void* base, int64_t a,
+                                            int64_t b, int tid, int nth) {
+  const char* c = static_cast<const char*>(base);
+  for (int64_t o = (a & ~int64_t{127}) + 128 * static_cast<int64_t>(tid);
+       o < b; o += 128 * static_cast<int64_t>(nth))
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(c + o));
+}
+
+// The records of the TUs of the launch's steps (bucket i's rows sh[i *
+// len] .. sh[i * len + len - 1]) into L2, before the first step: they
+// arrive by a host-to-device copy, and each step's loads would otherwise
+// wait on device memory in the chain (PERF.md).
+template <typename C>
+__device__ __forceinline__ void prefetch_records(const ScanParams& p,
+                                                 const int* sh, int len) {
+  const int nth = kCtas * kWarps * 32;
+  const int tid = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
+  for (int i = 0; i < p.n_buckets; ++i) {
+    const ScanBucket& B = p.b[i];
+    const int64_t a = sh[i * len], b = sh[i * len + len - 1];
+    const int64_t S = int64_t{1} << B.log2, R = 4 * S + 2;
+    const int64_t cs = sizeof(C);
+    prefetch_l2(B.ref_ys, a * R * cs, b * R * cs, tid, nth);
+    prefetch_l2(B.ref_xs, a * R * cs, b * R * cs, tid, nth);
+    prefetch_l2(B.ref_ok, a * R, b * R, tid, nth);
+    prefetch_l2(B.pos, a * 2 * cs, b * 2 * cs, tid, nth);
+    prefetch_l2(B.mode, a, b, tid, nth);
+    prefetch_l2(B.filter_flag, a, b, tid, nth);
+    prefetch_l2(B.strong_allowed, a, b, tid, nth);
+    prefetch_l2(B.dc_edge, a, b, tid, nth);
+    prefetch_l2(B.residual, a * S * S * 4, b * S * S * 4, tid, nth);
+  }
+}
+
+// The coordinates' type C: uint16_t or int32_t.  One CTA a multiprocessor
+// is all a launch takes, and saying so lets the compiler keep a work item
+// in registers: left to aim for two CTAs, it rematerialises lane and
+// parameter values in the step's chain, which measured slower on an H100
+// (PERF.md).
+template <typename C>
+__global__ void __launch_bounds__(kWarps * 32, 1)
 scan_kernel(const __grid_constant__ ScanParams p) {
   extern __shared__ int sh[];   // [n_buckets, k1 - k0 + 1] step starts
   __shared__ int s_raw[kWarps][kMaxRefs];
@@ -345,19 +412,20 @@ scan_kernel(const __grid_constant__ ScanParams p) {
     sh[i] = __ldg(p.starts + static_cast<int64_t>(i / len) * p.stride +
                   p.k0 + i % len);
   __syncthreads();
+  if (!p.barrier_only) prefetch_records<C>(p, sh, len);
   int* raw = s_raw[w];
   int* sel = s_sel[w];
   int* ext = s_ext[w];
 
   TuOps t;
   int kk = next_live(p, sh, len, 0, n);
-  if (!p.barrier_only && kk < n) fetch(p, sh, len, kk, gw, lane, t);
+  if (!p.barrier_only && kk < n) fetch<C>(p, sh, len, kk, gw, lane, t);
   while (kk < n) {
     if (!p.barrier_only) {
       run_tu(p, t, lane, raw, sel, ext);
       const int total = step_items(p, sh, len, kk);
       for (int j = gw + nw; j < total; j += nw) {   // a step wider
-        fetch(p, sh, len, kk, j, lane, t);           // than the warps
+        fetch<C>(p, sh, len, kk, j, lane, t);        // than the warps
         run_tu(p, t, lane, raw, sel, ext);
       }
     }
@@ -366,7 +434,7 @@ scan_kernel(const __grid_constant__ ScanParams p) {
     // the next step's operands load between the arrive and the wait
     __syncwarp();
     cluster_arrive();
-    if (!p.barrier_only) fetch(p, sh, len, kn, gw, lane, t);
+    if (!p.barrier_only) fetch<C>(p, sh, len, kn, gw, lane, t);
     cluster_wait();
     kk = kn;
   }
@@ -391,29 +459,39 @@ cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, size_t smem) {
   return cfg;
 }
 
+// One instantiation's attributes set and one cluster of it with `dyn`
+// bytes of dynamic shared memory checked to fit.
+template <typename C>
+cudaError_t prepare_kernel(int dyn) {
+  cudaError_t e = cudaFuncSetAttribute(
+      scan_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        scan_kernel<C>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  int fits = 0;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(&attr, dyn);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveClusters(&fits, scan_kernel<C>, &cfg);
+  if (e == cudaSuccess && fits < 1) e = cudaErrorNotSupported;
+  return e;
+}
+
 cudaError_t prepare(int dev) {
   int& state = g_state[dev];
   if (state == 1) return cudaSuccess;
   if (state < 0) return static_cast<cudaError_t>(-state);
   int optin = 0;
-  cudaFuncAttributes fa{};
+  cudaFuncAttributes fa16{}, fa32{};
   cudaError_t e = cudaDeviceGetAttribute(
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, scan_kernel);
-  const int dyn = optin - static_cast<int>(fa.sharedSizeBytes);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(
-        scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(
-        scan_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa16, scan_kernel<uint16_t>);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa32, scan_kernel<int32_t>);
   // one cluster with the most shared memory a launch takes must fit
-  int fits = 0;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(&attr, dyn);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveClusters(&fits, scan_kernel, &cfg);
-  if (e == cudaSuccess && fits < 1) e = cudaErrorNotSupported;
+  const int dyn = optin - static_cast<int>(std::max(fa16.sharedSizeBytes,
+                                                    fa32.sharedSizeBytes));
+  if (e == cudaSuccess) e = prepare_kernel<uint16_t>(dyn);
+  if (e == cudaSuccess) e = prepare_kernel<int32_t>(dyn);
   g_max_dyn[dev] = dyn;
   state = e == cudaSuccess ? 1 : -static_cast<int>(e);
   return e;
@@ -421,9 +499,10 @@ cudaError_t prepare(int dev) {
 
 }  // namespace
 
-// table: n_buckets rows of kTableCols int64 (host memory): ref_idx, ref_ok,
-//   mode, filter_flag, strong_allowed, dc_edge, pos, residual (device
-//   pointers), log2; ascending log2.  starts: device int32 [n_buckets,
+// table: n_buckets rows of kTableCols int64 (host memory): ref_ys, ref_xs,
+//   ref_ok, mode, filter_flag, strong_allowed, dc_edge, pos, residual
+//   (device pointers; coordinates uint16, or int32 with coord_wide; mode
+//   uint8; flags bytes), log2; ascending log2.  starts: device int32 [n_buckets,
 //   stride].  angles: host int32 [2 * 35], intraPredAngle then invAngle per
 //   mode.  The starts of steps k0..k1 must fit in
 //   shared memory (n_buckets * (k1 - k0 + 1) int32, ~200 KB on an H100).
@@ -431,7 +510,8 @@ cudaError_t prepare(int dev) {
 //   the checks or of the launch; nothing falls back.
 extern "C" int p265_scan(const int64_t* table, int n_buckets,
                          const int32_t* starts, int stride, int k0, int k1,
-                         int32_t* plane, int pw, int barrier_only,
+                         int32_t* plane, int pw, int coord_wide,
+                         int barrier_only,
                          const int32_t* angles, cudaStream_t stream) {
   if (n_buckets <= 0 || n_buckets > kMaxBuckets || k0 < 0 || k1 <= k0 ||
       k1 > stride - 1 || pw <= 0)
@@ -441,15 +521,16 @@ extern "C" int p265_scan(const int64_t* table, int n_buckets,
   for (int i = 0; i < n_buckets; ++i) {
     const int64_t* t = table + static_cast<int64_t>(i) * kTableCols;
     ScanBucket& b = p.b[i];
-    b.ref_idx = reinterpret_cast<const int64_t*>(t[0]);
-    b.ref_ok = reinterpret_cast<const uint8_t*>(t[1]);
-    b.mode = reinterpret_cast<const int32_t*>(t[2]);
-    b.filter_flag = reinterpret_cast<const uint8_t*>(t[3]);
-    b.strong_allowed = reinterpret_cast<const uint8_t*>(t[4]);
-    b.dc_edge = reinterpret_cast<const uint8_t*>(t[5]);
-    b.pos = reinterpret_cast<const int64_t*>(t[6]);
-    b.residual = reinterpret_cast<const int32_t*>(t[7]);
-    b.log2 = static_cast<int>(t[8]);
+    b.ref_ys = reinterpret_cast<const void*>(t[0]);
+    b.ref_xs = reinterpret_cast<const void*>(t[1]);
+    b.ref_ok = reinterpret_cast<const uint8_t*>(t[2]);
+    b.mode = reinterpret_cast<const uint8_t*>(t[3]);
+    b.filter_flag = reinterpret_cast<const uint8_t*>(t[4]);
+    b.strong_allowed = reinterpret_cast<const uint8_t*>(t[5]);
+    b.dc_edge = reinterpret_cast<const uint8_t*>(t[6]);
+    b.pos = reinterpret_cast<const void*>(t[7]);
+    b.residual = reinterpret_cast<const int32_t*>(t[8]);
+    b.log2 = static_cast<int>(t[9]);
     b.parts = (1 << 2 * b.log2) > kPart ? (1 << 2 * b.log2) / kPart : 1;
     if (b.log2 < 2 || b.log2 > 5 || (i > 0 && b.log2 <= p.b[i - 1].log2))
       return static_cast<int>(cudaErrorInvalidValue);
@@ -480,8 +561,10 @@ extern "C" int p265_scan(const int64_t* table, int n_buckets,
   cudaLaunchConfig_t cfg = cluster_config(&attr, static_cast<size_t>(smem));
   cfg.stream = stream;
   void* args[] = {&p};
-  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(scan_kernel),
-                          args);
+  const void* kernel =
+      coord_wide ? reinterpret_cast<const void*>(scan_kernel<int32_t>)
+                 : reinterpret_cast<const void*>(scan_kernel<uint16_t>);
+  e = cudaLaunchKernelExC(&cfg, kernel, args);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

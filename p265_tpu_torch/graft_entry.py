@@ -25,7 +25,8 @@ CASES = ("multistream", "spatial", "rows1080")
 
 def example_batch(n=8, size=8, H=64, W=64) -> tuple:
     """The arrays of __graft_entry__._example_batch (seed 0): plane, pos,
-    ref_ys, ref_xs, ref_ok, mode, levels, qp."""
+    ref_ys, ref_xs, ref_ok, mode, levels, qp (the same values; qp at the
+    uint8 wire dtype that K1 reads)."""
     rng = np.random.default_rng(0)
     nref = 2 * (2 * size + 1)
     plane = np.zeros((H + 32, W), np.int32)
@@ -38,7 +39,7 @@ def example_batch(n=8, size=8, H=64, W=64) -> tuple:
     mode = rng.integers(0, 35, n).astype(np.int32)
     levels = (rng.random((n, size, size)) < 0.2) * rng.integers(
         -64, 64, (n, size, size))
-    qp = rng.integers(20, 45, n).astype(np.int32)
+    qp = rng.integers(20, 45, n).astype(np.uint8)
     return (plane, pos, ref_ys, ref_xs, ref_ok, mode, levels.astype(np.int32),
             qp)
 

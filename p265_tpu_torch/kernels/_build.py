@@ -40,14 +40,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # host group table, n_groups, device tables, out, stream
-    "p265_itransform_grouped": [_P, _I, _P, _P, _P],
+    # host group table, n_groups, device tables, out, plane, plane pitch,
+    # int32 positions, stream
+    "p265_itransform_grouped": [_P, _I, _P, _P, _P, ctypes.c_int64, _I,
+                                _P],
     # host group table, n_groups, host luma / chroma filters, epilogue,
     # stream
     "p265_mc_grouped": [_P, _I, _P, _P, _I, _P],
     # host bucket table, n_buckets, device starts, stride, k0, k1, plane,
-    # pw, barrier_only, host angle table, stream
-    "p265_scan": [_P, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P],
+    # pw, int32 coordinates, barrier_only, host angle table, stream
+    "p265_scan": [_P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
     # host group table, n_groups, both directions, stream
     "p265_deblock": [_P, _I, _I, _P],
     # host parameter row, stream

@@ -4,7 +4,13 @@ Counterpart of p265_tpu/kernels/itransform.py (`batch_residual_ref`, the
 plain version) and p265_tpu/kernels/pallas_itransform.py (the kernel:
 csrc/itransform.cu behind `batch_residual_grouped`, which computes the TUs
 of every size of one call site in one launch; `batch_residual` is its
-one-size call).
+one-size call).  The kernel reads the reference's wire dtypes as a
+dispatch stages them (kernels/staging.py): levels int16 (or int32), qp and
+scale_m uint8, positions uint16 or int32; its wrapper refuses any other
+dtype.  The plain versions take the same fields and widen them.  With a
+`plane`, the residuals are added in place to the plane at each TU's
+position and clipped (the hoisted inter TUs, the counterpart of the
+reference's flat scatter and clip in p265_tpu/pipeline/batch_decode.py).
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import torch
 
 from p265_tpu_torch.tables import DCT, DST4, LEVEL_SCALE
 from p265_tpu_torch.kernels import _build
+from p265_tpu_torch.kernels.staging import widen
 
 BIT_DEPTH = 8
 _SHIFT2 = 20 - BIT_DEPTH
@@ -75,11 +82,14 @@ def batch_residual_ref(levels, qp, is_dst, tskip, log2: int, bypass=None,
                        scale_m=None):
     """Plain torch version: [n,s,s] levels -> [n,s,s] int32 residual.
 
-    levels int16 or int32 (widened here: int16 products would overflow);
-    qp [n] int32; is_dst (None: no DST), tskip, bypass [n] bool; scale_m
-    [n,s,s] int32 or None (flat 16).  is_dst and tskip only act at
-    log2 == 2."""
-    levels = levels.to(torch.int32)
+    levels int16 or int32; qp [n] uint8 (the wire dtype) or any wider
+    integer; is_dst (None: no DST), tskip, bypass [n] bool; scale_m
+    [n,s,s] uint8 (or wider) or None (flat 16).  Every integer field is
+    widened to int32 here (int16 products would overflow).  is_dst and
+    tskip only act at log2 == 2."""
+    levels, qp = widen(levels, torch.int32), widen(qp, torch.int32)
+    if scale_m is not None:
+        scale_m = widen(scale_m, torch.int32)
     d = _dequant(levels, qp, log2, scale_m)
     dct, dst = _mats(log2, levels.device)
     res = _itx(d, dct)
@@ -96,14 +106,25 @@ def batch_residual_ref(levels, qp, is_dst, tskip, log2: int, bypass=None,
     return res
 
 
-def batch_residual_grouped_ref(groups: dict) -> dict:
+def batch_residual_grouped_ref(groups: dict, plane=None):
     """Plain version of batch_residual_grouped: one batch_residual_ref call
-    per size."""
-    return {log2: batch_residual_ref(f["coeffs"], f["qp"], f.get("is_dst"),
-                                     f["tskip"], log2,
-                                     bypass=f.get("bypass"),
-                                     scale_m=f.get("scale_m"))
-            for log2, f in groups.items()}
+    per size, then (with a plane) clip(plane + residual, 0, 255) written
+    back at each TU's samples."""
+    res = {log2: batch_residual_ref(f["coeffs"], f["qp"], f.get("is_dst"),
+                                    f["tskip"], log2,
+                                    bypass=f.get("bypass"),
+                                    scale_m=f.get("scale_m"))
+           for log2, f in groups.items()}
+    if plane is None:
+        return res
+    flat, pw = plane.view(-1), plane.shape[1]
+    for log2, f in groups.items():
+        ar = torch.arange(1 << log2, device=plane.device)
+        pos = widen(f["pos"], torch.int64)
+        idx = ((pos[:, 0, None, None] + ar[None, :, None]) * pw
+               + pos[:, 1, None, None] + ar[None, None, :]).reshape(-1)
+        flat[idx] = (flat[idx] + res[log2].reshape(-1)).clamp(0, 255)
+    return plane
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,6 +137,8 @@ def _consts(device: torch.device) -> torch.Tensor:
 
 
 def _check(t, name, dtypes, shape, device):
+    """t as the kernel reads it: one of `dtypes` (never cast here), shape
+    and device; a mismatch raises."""
     if (t.dtype not in dtypes or tuple(t.shape) != shape
             or t.device != device):
         raise ValueError(f"batch_residual: {name} must be {dtypes} {shape} "
@@ -130,28 +153,40 @@ def _aligned(t):
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
-def batch_residual_grouped(groups: dict) -> dict:
+def batch_residual_grouped(groups: dict, plane=None):
     """Residuals of TUs of several sizes: {log2: fields} -> {log2: [n,s,s]
-    int32}, views of one flat buffer.
+    int32}, views of one flat buffer; or, with `plane` ([rows, pw] int32,
+    contiguous), the plane, each TU's residual added in place at its
+    position and clipped to 0..255.
 
-    fields: coeffs [n,s,s] int16 or int32, qp [n] int32, tskip [n] bool,
-    and optionally is_dst and bypass [n] bool and scale_m [n,s,s] int32;
-    other keys are ignored.  Each size computes exactly batch_residual_ref.
-    A CPU tensor takes the plain version; CUDA tensors launch
-    csrc/itransform.cu once for all sizes."""
+    fields: coeffs [n,s,s] int16 or int32, qp [n] uint8, tskip [n] bool,
+    optionally is_dst and bypass [n] bool and scale_m [n,s,s] uint8, and
+    with a plane pos [n,2] (row, col) uint16 or int32 (one dtype for all
+    sizes); other keys are ignored.  Each size computes exactly
+    batch_residual_grouped_ref.  A CPU tensor takes the plain version;
+    CUDA tensors launch csrc/itransform.cu once for all sizes, at these
+    dtypes only (any other raises)."""
     if not groups:
-        return {}
+        return {} if plane is None else plane
     dev = next(iter(groups.values()))["coeffs"].device
     if dev.type == "cpu":
-        return batch_residual_grouped_ref(groups)
+        return batch_residual_grouped_ref(groups, plane)
     if dev.type != "cuda":
         raise ValueError(f"batch_residual: no kernel for {dev}")
-    return _grouped_kernel(groups, dev)
+    return _grouped_kernel(groups, dev, plane)
 
 
-def _grouped_kernel(groups: dict, dev) -> dict:
-    i32, b8 = (torch.int32,), (torch.bool,)
-    table = np.zeros((len(groups), 10), np.int64)
+def _grouped_kernel(groups: dict, dev, plane=None):
+    u8, b8 = (torch.uint8,), (torch.bool,)
+    coords = (torch.uint16, torch.int32)
+    if plane is not None and (plane.dtype != torch.int32 or plane.dim() != 2
+                              or not plane.is_contiguous()
+                              or plane.device != dev):
+        raise ValueError(f"batch_residual: plane must be contiguous int32 "
+                         f"[rows, pw] on {dev}, got {plane.dtype} "
+                         f"{tuple(plane.shape)} on {plane.device}")
+    pos_dt = None
+    table = np.zeros((len(groups), 11), np.int64)
     alive, views, off = [], {}, 0
     for row, (log2, f) in enumerate(groups.items()):
         if log2 not in (2, 3, 4, 5):
@@ -159,29 +194,41 @@ def _grouped_kernel(groups: dict, dev) -> dict:
         n, s = f["coeffs"].shape[0], 1 << log2
         lv = _aligned(_check(f["coeffs"], "coeffs",
                              (torch.int16, torch.int32), (n, s, s), dev))
-        ts = [_check(f["qp"], "qp", i32, (n,), dev),
+        ts = [_check(f["qp"], "qp", u8, (n,), dev),
               _check(f["tskip"], "tskip", b8, (n,), dev)]
         opt = [None if f.get(k) is None else _check(f[k], k, dt, shape, dev)
                for k, dt, shape in (("is_dst", b8, (n,)),
                                     ("bypass", b8, (n,)),
-                                    ("scale_m", i32, (n, s, s)))]
+                                    ("scale_m", u8, (n, s, s)))]
         opt[2] = _aligned(opt[2])
-        alive += [lv, *ts, *opt]
-        ptr = [0 if t is None else t.data_ptr() for t in opt]
+        pos = None
+        if plane is not None:
+            pos = _check(f["pos"], "pos", (pos_dt,) if pos_dt else coords,
+                         (n, 2), dev)
+            pos_dt = pos.dtype
+        alive += [lv, *ts, *opt, pos]
+        ptr = [0 if t is None else t.data_ptr() for t in (*opt, pos)]
         table[row] = (lv.data_ptr(), ts[0].data_ptr(), ptr[0],
                       ts[1].data_ptr(), ptr[1], ptr[2], off, n, log2,
-                      lv.dtype == torch.int32)
+                      lv.dtype == torch.int32, ptr[3])
         views[log2] = (off, n, s)
         off += n * s * s
-    out = torch.empty(off, dtype=torch.int32, device=dev)
+    out = (torch.empty(off, dtype=torch.int32, device=dev) if plane is None
+           else None)
     if off:
         lib = _build.library()
         with torch.cuda.device(dev):
             err = lib.p265_itransform_grouped(
                 table.ctypes.data, len(groups), _consts(dev).data_ptr(),
-                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                0 if out is None else out.data_ptr(),
+                0 if plane is None else plane.data_ptr(),
+                0 if plane is None else plane.shape[1],
+                int(pos_dt == torch.int32),
+                torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "itransform")
         _build.LAUNCHES["itransform"] += 1
+    if plane is not None:
+        return plane
     return {log2: out[o:o + n * s * s].view(n, s, s)
             for log2, (o, n, s) in views.items()}
 

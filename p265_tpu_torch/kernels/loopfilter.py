@@ -15,10 +15,18 @@ torch) on CPU tensors.
 
 One assembly of the chain serves every caller: `pack_filter_params` (host)
 and `filter_planes` (device: deblocking, SAO, then the restore of the
-bypass samples) are what the fused batch path runs; the per-picture entry
-points `deblock`, `sao`, `loop_filters` and `loop_filters_frames`
-(counterparts of deblock_tpu, sao_tpu, loop_filters_tpu and
-loop_filters_tpu_frames) stack their pictures and run the same two.
+bypass samples and the uint8 output) are what the fused batch path runs;
+the per-picture entry points `deblock`, `sao`, `loop_filters` and
+`loop_filters_frames` (counterparts of deblock_tpu, sao_tpu,
+loop_filters_tpu and loop_filters_tpu_frames) stack their pictures and
+run the same two.
+
+The kernels read the parameters at the reference's wire dtypes, as
+pack_filter_params stages them (the deblocking grids int16, the SAO maps
+int8), and their wrappers refuse any other dtype; the plain versions take
+the same arrays (or wider ones) and widen them (kernels/staging.py
+`widen`).  SAO's launch ends the chain: it writes uint8 samples, the
+prefilter sample wherever a bypass mask is set.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ import torch
 
 from p265_tpu_torch.golden.decoder import bypass_pixel_masks
 from p265_tpu_torch.kernels import _build
-from p265_tpu_torch.kernels.staging import stage
+from p265_tpu_torch.kernels.staging import stage, widen
 from p265_tpu_torch.syntax.ctu import SAO_BAND, SAO_EDGE
 from p265_tpu_torch.tables import BETA_TABLE, TC_TABLE, chroma_qp_from_luma
 
@@ -174,7 +182,9 @@ def _edge_cols(n_e: int, device) -> torch.Tensor:
 
 
 def deblock_luma_vertical_ref(planes, bs, beta, tc):
-    """Plain version of deblock_luma_vertical: branch-free int32 torch."""
+    """Plain version of deblock_luma_vertical: branch-free int32 torch
+    (the int16 edge parameters widened here)."""
+    bs, beta, tc = (widen(t, torch.int32) for t in (bs, beta, tc))
     B, H, W = planes.shape
     n_e = bs.shape[2]
     cols = _edge_cols(n_e, planes.device)
@@ -257,7 +267,8 @@ def deblock_luma_vertical_ref(planes, bs, beta, tc):
 
 
 def deblock_chroma_vertical_ref(planes, tc):
-    """Plain version of deblock_chroma_vertical."""
+    """Plain version of deblock_chroma_vertical (tc widened here)."""
+    tc = widen(tc, torch.int32)
     n_e = tc.shape[2]
     cols = _edge_cols(n_e, planes.device)
     p1 = planes[:, :, cols - 2]
@@ -281,8 +292,11 @@ def deblock_chroma_vertical_ref(planes, tc):
 _EO = ((0, -1, 0, 1), (-1, 0, 1, 0), (-1, -1, 1, 1), (-1, 1, 1, -1))
 
 
-def sao_apply_ref(src, ty_g, cls_g, offs_g, ctb: int):
-    """Plain version of sao_apply."""
+def sao_apply_ref(src, ty_g, cls_g, offs_g, ctb: int, keep=None,
+                  dtype=torch.int32):
+    """Plain version of sao_apply (the int8 maps widened here)."""
+    ty_g, cls_g, offs_g = (widen(t, torch.int32)
+                           for t in (ty_g, cls_g, offs_g))
     B, H, W = src.shape
     dev = src.device
 
@@ -319,7 +333,10 @@ def sao_apply_ref(src, ty_g, cls_g, offs_g, ctb: int):
                                                  d_edges[3])))
     delta = torch.where(ty == SAO_BAND, d_band,
                         torch.where(ty == SAO_EDGE, d_edge, zero))
-    return (v + delta).clamp(0, 255)
+    out = (v + delta).clamp(0, 255)
+    if keep is not None:
+        out = torch.where(keep[1], keep[0], out)
+    return out.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -335,11 +352,14 @@ def on_cuda(t, name: str) -> bool:
     return t.device.type == "cuda"
 
 
-def _int32(t, what: str, shape, device) -> torch.Tensor:
-    if (t.dtype != torch.int32 or tuple(t.shape) != tuple(shape)
+def _wire(t, what: str, dtype, shape, device) -> torch.Tensor:
+    """t as a kernel reads it: its wire dtype (never cast here), shape and
+    device; a mismatch raises."""
+    if (t.dtype != dtype or tuple(t.shape) != tuple(shape)
             or t.device != device):
-        raise ValueError(f"{what} must be int32 {tuple(shape)} on {device}, "
-                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        raise ValueError(f"{what} must be {dtype} {tuple(shape)} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
     return t.contiguous()
 
 
@@ -347,9 +367,9 @@ def _deblock_launch(name: str, groups: list, both: bool) -> list:
     """ONE launch of csrc/loopfilter.cu's deblocking over a table of plane
     groups [(planes [B,H,W], vertical parameters, horizontal parameters or
     None, chroma)]: luma parameters are (bS, beta, tc), chroma ones (tc,),
-    the vertical ones [B, H//4, n_ev] and the horizontal ones (the
-    transposed layout) [B, W//4, n_eh].  both: the vertical edges, then the
-    horizontal ones; else the vertical edges only.  Planes may be any
+    all int16, the vertical ones [B, H//4, n_ev] and the horizontal ones
+    (the transposed layout) [B, W//4, n_eh].  both: the vertical edges,
+    then the horizontal ones; else the vertical edges only.  Planes may be any
     strided view (a transposed view is read and written in its storage
     order, with no copy); the outputs are new planes with the input's
     strides where the input is dense.  -> the outputs, in order."""
@@ -370,10 +390,10 @@ def _deblock_launch(name: str, groups: list, both: bool) -> list:
             raise ValueError(f"{name}: {n_ev} vertical and {n_eh} "
                              f"horizontal edges do not fit planes of "
                              f"{H}x{W}")
-        pv = [_int32(t, f"{name}: vertical edge parameters",
-                     (B, H // 4, n_ev), dev) for t in pv]
-        ph = ([_int32(t, f"{name}: horizontal edge parameters",
-                      (B, W // 4, n_eh), dev) for t in ph] if both else [])
+        pv = [_wire(t, f"{name}: vertical edge parameters", torch.int16,
+                    (B, H // 4, n_ev), dev) for t in pv]
+        ph = ([_wire(t, f"{name}: horizontal edge parameters", torch.int16,
+                     (B, W // 4, n_eh), dev) for t in ph] if both else [])
         out = torch.empty_like(planes)
         outs.append(out)
         if not out.numel():
@@ -398,10 +418,11 @@ def _deblock_launch(name: str, groups: list, both: bool) -> list:
 
 
 def deblock_luma_vertical(planes, bs, beta, tc):
-    """planes [B,H,W] int32 (any strides); bs/beta/tc [B, H//4, n_e] int32;
-    edges at x = 8(k+1).  Returns new planes; the inputs are not modified.
-    A CPU tensor takes deblock_luma_vertical_ref; a CUDA tensor launches
-    csrc/loopfilter.cu once for all B planes (one direction)."""
+    """planes [B,H,W] int32 (any strides); bs/beta/tc [B, H//4, n_e] int16
+    (the plain version also takes int32); edges at x = 8(k+1).  Returns
+    new planes; the inputs are not modified.  A CPU tensor takes
+    deblock_luma_vertical_ref; a CUDA tensor launches csrc/loopfilter.cu
+    once for all B planes (one direction)."""
     if not on_cuda(planes, "deblock_luma_vertical"):
         return deblock_luma_vertical_ref(planes, bs, beta, tc)
     return _deblock_launch("deblock_luma_vertical",
@@ -410,9 +431,10 @@ def deblock_luma_vertical(planes, bs, beta, tc):
 
 
 def deblock_chroma_vertical(planes, tc):
-    """planes [B,Hc,Wc] int32 (any strides); tc [B, Hc//4, n_e] int32;
-    edges at x = 8(k+1).  CPU: deblock_chroma_vertical_ref; CUDA: one
-    launch of csrc/loopfilter.cu (one direction)."""
+    """planes [B,Hc,Wc] int32 (any strides); tc [B, Hc//4, n_e] int16 (the
+    plain version also takes int32); edges at x = 8(k+1).  CPU:
+    deblock_chroma_vertical_ref; CUDA: one launch of csrc/loopfilter.cu
+    (one direction)."""
     if not on_cuda(planes, "deblock_chroma_vertical"):
         return deblock_chroma_vertical_ref(planes, tc)
     return _deblock_launch("deblock_chroma_vertical",
@@ -446,7 +468,7 @@ def deblock_planes(luma, chroma, fp: dict) -> tuple:
     (any strides: rows of the tall plane on the batch path), fp the
     vertical (bs_v, beta_v, tc_v, tcc_v) and horizontal (bs_h, beta_h,
     tc_h, tcc_h: the transposed layout) edge parameters of
-    pack_filter_params -> new planes, deblocked vertically, then
+    pack_filter_params (int16) -> new planes, deblocked vertically, then
     horizontally; the inputs are not modified.  A CPU tensor takes
     deblock_planes_ref; a CUDA tensor launches csrc/loopfilter.cu ONCE for
     both directions and both plane groups."""
@@ -460,20 +482,26 @@ def deblock_planes(luma, chroma, fp: dict) -> tuple:
 
 
 def sao_kernel(src, ty_g, cls_g, offs_g, ctb: int, row0: int = 0,
-               total_h: int | None = None, halo: int = 0):
+               total_h: int | None = None, halo: int = 0, keep=None,
+               dtype=torch.int32):
     """One launch of csrc/loopfilter.cu's SAO on CUDA tensors: src
     [B, H + 2 halo, W] int32 (any strides; `halo` rows above and below the
-    rows to filter), ty_g/cls_g [B,ny,nx] and offs_g [B,4,ny,nx] int32 ->
-    the filtered rows [B,H,W] int32.  row0 is the picture row of the first
-    filtered row and total_h the picture's height (default H): neighbours
-    outside the picture's rows are no neighbours, and rows past the CTB map
-    take its last CTB row.  CTBs are a power of two from 8 samples; with
-    no halo rows the rows are the picture's from its first."""
+    rows to filter), ty_g/cls_g [B,ny,nx] and offs_g [B,4,ny,nx] int8 ->
+    the filtered rows [B,H,W] at `dtype` (int32 or uint8).  row0 is the
+    picture row of the first filtered row and total_h the picture's height
+    (default H): neighbours outside the picture's rows are no neighbours,
+    and rows past the CTB map take its last CTB row.  keep: (prefilter
+    [B,H,W] int32 any strides, mask [B,H,W] bool) -> where the mask is
+    set, the output is the prefilter sample.  CTBs are a power of two from
+    8 samples; with no halo rows the rows are the picture's from its
+    first."""
     if (src.device.type != "cuda" or src.dim() != 3
             or src.dtype != torch.int32):
         raise ValueError(f"sao: the kernel takes an int32 [B,H,W] CUDA "
                          f"tensor, got {src.dtype} {tuple(src.shape)} on "
                          f"{src.device}")
+    if dtype not in (torch.int32, torch.uint8):
+        raise ValueError(f"sao: writes int32 or uint8, not {dtype}")
     dev = src.device
     B, Hs, W = src.shape
     H = Hs - 2 * halo
@@ -485,14 +513,28 @@ def sao_kernel(src, ty_g, cls_g, offs_g, ctb: int, row0: int = 0,
         raise ValueError(f"sao: a {ny}x{nx} map of {ctb}-sample CTBs does "
                          f"not cover {total_h}x{W} (rows {row0}.., halo "
                          f"{halo}), or the CTB is no power of two from 8")
-    maps = [_int32(t, f"sao: {n}", shape, dev) for t, n, shape in (
-        (ty_g, "types", (B, ny, nx)), (cls_g, "classes", (B, ny, nx)),
-        (offs_g, "offsets", (B, 4, ny, nx)))]
-    out = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+    maps = [_wire(t, f"sao: {n}", torch.int8, shape, dev)
+            for t, n, shape in ((ty_g, "types", (B, ny, nx)),
+                                (cls_g, "classes", (B, ny, nx)),
+                                (offs_g, "offsets", (B, 4, ny, nx)))]
+    pre, mask, pstride = None, None, (0, 0, 0)
+    if keep is not None:
+        pre, mask = keep
+        if (pre.dtype != torch.int32 or tuple(pre.shape) != (B, H, W)
+                or pre.device != dev):
+            raise ValueError(f"sao: the prefilter planes must be int32 "
+                             f"{(B, H, W)} on {dev}, got {pre.dtype} "
+                             f"{tuple(pre.shape)} on {pre.device}")
+        mask = _wire(mask, "sao: bypass mask", torch.bool, (B, H, W), dev)
+        pstride = pre.stride()
+    out = torch.empty((B, H, W), dtype=dtype, device=dev)
     if out.numel():
         q = np.array([src.data_ptr(), out.data_ptr(),
                       *(t.data_ptr() for t in maps), B, H, W, *src.stride(),
-                      halo, row0, total_h, ny, nx, ctb, SAO_BAND, SAO_EDGE],
+                      halo, row0, total_h, ny, nx, ctb, SAO_BAND, SAO_EDGE,
+                      int(dtype == torch.uint8),
+                      0 if pre is None else pre.data_ptr(),
+                      0 if mask is None else mask.data_ptr(), *pstride],
                      np.int64)
         lib = _build.library()
         with torch.cuda.device(dev):
@@ -503,13 +545,16 @@ def sao_kernel(src, ty_g, cls_g, offs_g, ctb: int, row0: int = 0,
     return out
 
 
-def sao_apply(src, ty_g, cls_g, offs_g, ctb: int):
-    """src [B,H,W] int32 (any strides); ty_g/cls_g [B,ny,nx]; offs_g
-    [B,4,ny,nx].  CPU: sao_apply_ref; CUDA: one launch of
+def sao_apply(src, ty_g, cls_g, offs_g, ctb: int, keep=None,
+              dtype=torch.int32):
+    """src [B,H,W] int32 (any strides); ty_g/cls_g [B,ny,nx] and offs_g
+    [B,4,ny,nx] int8 (the plain version also takes int32) -> [B,H,W] at
+    `dtype` (int32 or uint8); keep (prefilter, bypass mask) as in
+    sao_kernel.  CPU: sao_apply_ref; CUDA: one launch of
     csrc/loopfilter.cu (sao_kernel)."""
     if not on_cuda(src, "sao_apply"):
-        return sao_apply_ref(src, ty_g, cls_g, offs_g, ctb)
-    return sao_kernel(src, ty_g, cls_g, offs_g, ctb)
+        return sao_apply_ref(src, ty_g, cls_g, offs_g, ctb, keep, dtype)
+    return sao_kernel(src, ty_g, cls_g, offs_g, ctb, keep=keep, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -577,27 +622,32 @@ def pack_filter_params(plans: list, flags=None, masks: bool = True) -> dict:
 
 def filter_planes(luma, chroma, fp: dict, ctb: int) -> tuple:
     """Device: luma [F,H,W] and chroma [2F,Hc,Wc] int32 prefilter planes ->
-    the filtered pair; fp is pack_filter_params' dict as tensors on the
-    planes' device (staged at its wire dtypes: each integer array is
-    widened to the kernels' int32 here), ctb the luma CTB size.  On the
-    card: one deblocking launch (deblock_planes) and two SAO launches
-    (luma; cb and cr)."""
-    fp = {k: v if v.dtype == torch.bool else v.to(torch.int32)
-          for k, v in fp.items()}
-    pre_luma, pre_chroma = luma, chroma
+    the filtered pair as uint8; fp is pack_filter_params' dict as tensors
+    on the planes' device at its wire dtypes (the kernels read them as
+    they are), ctb the luma CTB size.  On the card: one deblocking launch
+    (deblock_planes) and one SAO launch a component (luma; cb and cr),
+    whose store restores the bypass samples (mask ? prefilter : filtered)
+    and writes uint8.  A component without SAO (a picture whose slice
+    header turns SAO off for it) takes torch.where and a uint8 cast
+    instead."""
+    pre = (luma, chroma)
     if "bs_v" in fp:
         luma, chroma = deblock_planes(luma, chroma, fp)
-    if "sao_ty_0" in fp:
-        luma = sao_apply(luma, fp["sao_ty_0"], fp["sao_cls_0"],
-                         fp["sao_off_0"], ctb)
-    if "sao_ty_1" in fp:
-        chroma = sao_apply(chroma, fp["sao_ty_1"], fp["sao_cls_1"],
-                           fp["sao_off_1"], ctb >> 1)
-    # bypass samples keep their pre-filter values
-    if "mask_y" in fp:
-        luma = torch.where(fp["mask_y"], pre_luma, luma)
-        chroma = torch.where(fp["mask_c"], pre_chroma, chroma)
-    return luma, chroma
+    out = []
+    for c, (planes, size, mask) in enumerate(
+            ((luma, ctb, fp.get("mask_y")),
+             (chroma, ctb >> 1, fp.get("mask_c")))):
+        keep = None if mask is None else (pre[c], mask)
+        if f"sao_ty_{c}" in fp:
+            planes = sao_apply(planes, fp[f"sao_ty_{c}"], fp[f"sao_cls_{c}"],
+                               fp[f"sao_off_{c}"], size, keep, torch.uint8)
+        else:
+            if keep is not None:
+                planes = torch.where(mask, pre[c], planes)
+            planes = planes.to(torch.uint8,
+                               memory_format=torch.contiguous_format)
+        out.append(planes)
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -607,6 +657,8 @@ def filter_planes(luma, chroma, fp: dict, ctb: int) -> tuple:
 
 def _filter_frames(plans: list, planes_list: list, device, flags=None,
                    masks: bool = True) -> list:
+    """The chain (filter_planes) over F pictures' [y, cb, cr] planes ->
+    per picture [y, cb, cr] uint8 tensors on `device`."""
     device = torch.device(device)
 
     def stack(c):
@@ -622,7 +674,7 @@ def _filter_frames(plans: list, planes_list: list, device, flags=None,
 
 def deblock(plan, planes: list, device) -> list:
     """Deblocking of one picture's [y, cb, cr] planes (numpy or tensors) ->
-    int32 tensors on `device`.  Counterpart of deblock_tpu."""
+    uint8 tensors on `device`.  Counterpart of deblock_tpu."""
     return _filter_frames([plan], [planes], device, (True, False, False),
                           masks=False)[0]
 

@@ -9,21 +9,23 @@ reproduces `_decode_batch_jit` step for step:
    frame's segments of the tall prediction plane, then the PCM samples
    scattered over the prediction (PCM TUs are pred-only inter TUs);
 2. the residuals of every inter TU ("hoisted" out of the scan: they have
-   no in-picture dependencies), one kernel launch for all TU sizes, with
-   one scatter, then init = clip(pred + residual);
+   no in-picture dependencies), one kernel launch for all TU sizes that
+   adds each residual to the prediction at its TU and clips, in place
+   (init = clip(pred + residual));
 3. the residuals of the intra TUs (one launch), then the intra wavefront
    scan;
 4. deblocking, vertical then horizontal (the vertical filter on the
    transposed planes);
-5. SAO;
-6. the restore of bypass (lossless) samples (steps 4-6 are
-   kernels/loopfilter.py `filter_planes`).
+5. SAO, whose launch also restores the bypass (lossless) samples and
+   writes the uint8 output (steps 4-5 are kernels/loopfilter.py
+   `filter_planes`).
 
 Plane layout: the F luma segments first, then F cb and F cr segments, each
 h + GUARD rows high inside one tall plane.  The batch's arrays travel at
 the reference's narrow wire dtypes and reach the device in ONE copy a
 dispatch (kernels/staging.py), the reference's "one dispatch (a few
-per-dtype uploads)"; its per-dtype buffer layout and power-of-two shape
+per-dtype uploads)", and the kernels read them at those dtypes; its
+per-dtype buffer layout and power-of-two shape
 ladder worked around XLA compile costs and have no counterpart here:
 arrays keep their exact shapes.
 """
@@ -152,11 +154,10 @@ def decode_batch_planes(batch: dict, refs, device,
     pre_luma = plane[:F * seg_h].reshape(F, seg_h, pw)[:, :H, :W]
     pre_chroma = plane[F * seg_h:].reshape(2 * F, seg_hc, pw)[:, :Hc, :Wc]
 
-    # 4.-6. deblocking, SAO, bypass samples
+    # 4.-5. deblocking, SAO with the bypass samples, uint8 out
     luma, chroma = filter_planes(pre_luma, pre_chroma, dev["fp"], m["ctb"])
-    u8 = torch.uint8
-    out = (pre_luma.to(u8), pre_chroma.to(u8), luma.contiguous().to(u8),
-           chroma.contiguous().to(u8))
+    out = (pre_luma.to(torch.uint8), pre_chroma.to(torch.uint8), luma,
+           chroma)
     _add(stats, "dispatch_s", time.perf_counter() - t1)
     return out
 

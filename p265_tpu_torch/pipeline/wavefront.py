@@ -20,6 +20,14 @@ warp per TU, the hardware cluster barrier between steps); on a CPU plane
 it runs the
 plain version, `scan_packed_ref`, over the same packed record.
 
+The kernels read the fields as a dispatch stages them, at the reference's
+wire dtypes (coordinates at `coord_dtype`, mode uint8, levels int16, qp
+and scale_m uint8, flags as bytes): K1 and the scan kernel refuse any
+other dtype, and only the plain versions widen (kernels/staging.py
+`widen`).  The hoisted inter TUs reach the plane through K1's plane
+epilogue (`init_plane`: the residual added to the prediction at each TU
+and clipped, in place).
+
 Shapes are exact.  The JAX package padded them to a power-of-two ladder so
 XLA would not recompile; eager torch has no compile to protect, so each
 step works on exactly its own TUs (a slice of the step-ordered arrays) and
@@ -129,7 +137,7 @@ def stack_plane(pp: PlanePlan) -> dict:
     the TUs of wavefront step k+1 are rows starts[k]:starts[k+1].  The
     fields travel at the reference's wire dtypes: coordinates (pos, ref_ys,
     ref_xs) at coord_dtype, mode, qp and scale_m uint8, coeffs int16, the
-    flags bool; expand() widens them on the device."""
+    flags bool; the kernels read them at these dtypes."""
     cdt = coord_dtype(pp.shape)
     out = {}
     for log2, b in pp.batches.items():
@@ -156,51 +164,45 @@ def stack_plane(pp: PlanePlan) -> dict:
     return out
 
 
-def k1_fields(tu: dict) -> dict:
-    """Device: staged TU fields -> K1's (batch_residual_grouped's) fields:
-    qp and scale_m widened to int32, coefficients as staged (int16)."""
-    out = {}
-    for log2, d in tu.items():
-        f = dict(d, qp=widen(d["qp"], torch.int32))
-        if d.get("scale_m") is not None:
-            f["scale_m"] = widen(d["scale_m"], torch.int32)
-        out[log2] = f
-    return out
+def expand(tu: dict) -> dict:
+    """Device: residuals (dequant + inverse transform) of every scan TU, in
+    ONE K1 launch, beside the staged fields the scan reads.
+
+    tu: {log2: fields} as stack_plane gives them, as device tensors at
+    their wire dtypes.  Returns {log2: dict(ref_ys, ref_xs [n, 2(2s+1)]
+    and pos [n, 2] at coord_dtype, ref_ok, mode uint8, filter_flag,
+    strong_allowed, dc_edge, residual [n, s, s] int32)}: the staged
+    fields as they are, no cast."""
+    res = itransform.batch_residual_grouped(tu)
+    return {log2: dict({k: d[k] for k in _SCAN_READS}, residual=res[log2])
+            for log2, d in tu.items()}
 
 
-def expand(tu: dict, pw: int) -> dict:
-    """Device: residuals (dequant + inverse transform) of every scan TU,
-    and the flat gather indices of their references in the tall plane
-    [*, pw].
-
-    tu: {log2: fields} as stack_plane gives them, as device tensors (at
-    their wire dtypes, or wider).  Returns {log2: dict(ref_idx [n, 2(2s+1)]
-    int64, ref_ok, mode int32, filter_flag, strong_allowed, dc_edge, pos
-    [n, 2] int64, residual [n, s, s] int32)}: the widening casts are the
-    scan's and K1's only reads of the narrow fields."""
-    # all sizes, one launch
-    res = itransform.batch_residual_grouped(k1_fields(tu))
-    i64 = torch.int64
-    return {log2: dict(
-        ref_idx=widen(d["ref_ys"], i64) * pw + widen(d["ref_xs"], i64),
-        ref_ok=d["ref_ok"], mode=widen(d["mode"], torch.int32),
-        filter_flag=d["filter_flag"], strong_allowed=d["strong_allowed"],
-        dc_edge=d["dc_edge"], pos=widen(d["pos"], i64), residual=res[log2])
-        for log2, d in tu.items()}
+def ref_index(d: dict, pw: int) -> torch.Tensor:
+    """The flat indices ref_ys * pw + ref_xs [n, 2(2s+1)] int64 of a scan
+    bucket's references in a plane of width pw (the plain version's; the
+    kernel forms them itself)."""
+    return widen(d["ref_ys"], torch.int64) * pw + widen(d["ref_xs"],
+                                                          torch.int64)
 
 
 # the kernel's per-bucket fields, in the column order of its table, with
-# their dtypes and their shapes per TU (s: the TU's size)
+# their dtypes (None: the launch's coordinate dtype, uint16 or int32) and
+# their shapes per TU (s: the TU's size)
 _PACK_FIELDS = (
-    ("ref_idx", torch.int64, lambda s: (4 * s + 2,)),
+    ("ref_ys", None, lambda s: (4 * s + 2,)),
+    ("ref_xs", None, lambda s: (4 * s + 2,)),
     ("ref_ok", torch.bool, lambda s: (4 * s + 2,)),
-    ("mode", torch.int32, lambda s: ()),
+    ("mode", torch.uint8, lambda s: ()),
     ("filter_flag", torch.bool, lambda s: ()),
     ("strong_allowed", torch.bool, lambda s: ()),
     ("dc_edge", torch.bool, lambda s: ()),
-    ("pos", torch.int64, lambda s: (2,)),
+    ("pos", None, lambda s: (2,)),
     ("residual", torch.int32, lambda s: (s, s)),
 )
+# the staged fields of a scan TU that expand() hands the scan
+_SCAN_READS = tuple(k for k, _, _ in _PACK_FIELDS if k != "residual")
+_COORDS = (torch.uint16, torch.int32)
 # the scan kernel's launch shape, csrc/scan.cu's (kCtas, kWarps): one
 # cluster of 16 CTAs of 16 warps, 256 warps, so every TU of the widest step
 # of a 1080p I picture (66 TUs) has a warp of its own (a 16x16 TU takes
@@ -220,13 +222,15 @@ class ScanPack:
     buckets: {log2: expand()'s fields}, ascending log2; starts: int32
     [n_buckets, n_steps + 1] on the plane's device, the TUs of step k of
     bucket i being rows starts[i][k]:starts[i][k+1]; step_tus: host [n_steps]
-    TUs a step over all buckets; table: host int64 [n_buckets, 9], the
-    kernel's per-bucket pointers and log2 (CUDA only, else None)."""
+    TUs a step over all buckets; table: host int64 [n_buckets, 10], the
+    kernel's per-bucket pointers and log2, and coord_wide whether its
+    coordinates are int32 (else uint16) (CUDA only: None and False)."""
     buckets: dict
     starts: torch.Tensor
     step_tus: np.ndarray
     n_steps: int
     table: np.ndarray | None
+    coord_wide: bool = False
 
 
 def step_starts(starts: dict, n_steps: int) -> np.ndarray:
@@ -242,8 +246,10 @@ def pack_scan(stacked: dict, starts: dict, n_steps: int, device,
     """expand()'s output and the host step starts {log2: int64
     [n_steps+1]} -> the scan's ScanPack.  starts_dev: the same starts
     already on `device` (step_starts(), staged with the dispatch); None
-    stages them here.  On a CUDA device every field must have the dtype,
-    shape and device the kernel reads; a mismatch raises."""
+    stages them here.  On a CUDA device every field must have the dtype
+    (the wire dtypes of _PACK_FIELDS; one coordinate dtype, uint16 or
+    int32, for every bucket), shape and device the kernel reads; a
+    mismatch raises (nothing is cast)."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -257,17 +263,22 @@ def pack_scan(stacked: dict, starts: dict, n_steps: int, device,
                          f"on {device}, got {starts_dev.dtype} "
                          f"{tuple(starts_dev.shape)} on {starts_dev.device}")
     step_tus = (st[:, 1:] - st[:, :-1]).sum(0)
-    table = None
+    table, coord = None, None
     if device.type == "cuda":
-        table = np.zeros((len(buckets), 9), np.int64)
+        table = np.zeros((len(buckets), 10), np.int64)
         for row, (log2, d) in enumerate(buckets.items()):
             s, n = 1 << log2, d["mode"].shape[0]
             if log2 not in (2, 3, 4, 5) or int(st[row, -1]) > n:
                 raise ValueError(f"pack_scan: bucket log2={log2} with {n} "
                                  f"TUs, starts to {int(st[row, -1])}")
+            if coord is None:
+                coord = d["pos"].dtype
+            if coord not in _COORDS:
+                raise ValueError(f"pack_scan: coordinates must be one of "
+                                 f"{_COORDS}, got {coord}")
             ptrs = []
             for name, dt, per in _PACK_FIELDS:
-                t = d[name]
+                t, dt = d[name], dt or coord
                 if (t.dtype != dt or tuple(t.shape) != (n, *per(s))
                         or t.device != device or not t.is_contiguous()):
                     raise ValueError(
@@ -276,7 +287,8 @@ def pack_scan(stacked: dict, starts: dict, n_steps: int, device,
                         f"{tuple(t.shape)} on {t.device}")
                 ptrs.append(t.data_ptr())
             table[row] = (*ptrs, log2)
-    return ScanPack(buckets, starts_dev, step_tus, n_steps, table)
+    return ScanPack(buckets, starts_dev, step_tus, n_steps, table,
+                    coord == torch.int32)
 
 
 def scan_packed_ref(packed: ScanPack, plane, k0: int, k1: int):
@@ -287,10 +299,15 @@ def scan_packed_ref(packed: ScanPack, plane, k0: int, k1: int):
     buckets land in ONE merged scatter (TUs of a step never overlap).
     Chroma TUs ride in the same buckets: their per-TU flags switch the
     luma-only smoothing and edge filters off (c_idx 0 semantics).  An
-    unavailable reference is 128 and its index is never read."""
+    unavailable reference is 128 and its index is never read.  The
+    staged coordinates and modes are widened here (the kernel reads them
+    as they are)."""
     flat = plane.view(-1)
     pw = plane.shape[1]
     starts = packed.starts.tolist()
+    wide = {log2: (ref_index(d, pw), widen(d["mode"], torch.int64),
+                   widen(d["pos"], torch.int64))
+            for log2, d in packed.buckets.items()}
     for k in range(k0, k1):
         idx, val = [], []
         for (log2, d), st in zip(packed.buckets.items(), starts):
@@ -298,13 +315,12 @@ def scan_packed_ref(packed: ScanPack, plane, k0: int, k1: int):
             if a == b:
                 continue
             s = 1 << log2
+            ref_idx, mode, pos = (w[a:b] for w in wide[log2])
             ok = d["ref_ok"][a:b]
-            refs = torch.where(ok, flat[torch.where(ok, d["ref_idx"][a:b],
-                                                    0)], 128)
+            refs = torch.where(ok, flat[torch.where(ok, ref_idx, 0)], 128)
             pred = intra.predict_from_refs(
-                refs, d["mode"][a:b], d["filter_flag"][a:b],
+                refs, mode, d["filter_flag"][a:b],
                 d["strong_allowed"][a:b], s, 0, d["dc_edge"][a:b])
-            pos = d["pos"][a:b]
             ar = torch.arange(s, device=plane.device)
             idx.append(((pos[:, 0, None, None] + ar[None, :, None]) * pw
                         + pos[:, 1, None, None]
@@ -348,7 +364,8 @@ def _scan_launch(packed: ScanPack, plane, k0: int, k1: int,
         err = lib.p265_scan(
             packed.table.ctypes.data, len(packed.buckets),
             packed.starts.data_ptr(), packed.n_steps + 1, k0, k1,
-            plane.data_ptr(), plane.shape[1], int(barrier_only),
+            plane.data_ptr(), plane.shape[1], int(packed.coord_wide),
+            int(barrier_only),
             _ANGLES.ctypes.data, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "scan")
 
@@ -410,16 +427,34 @@ def hoist_inter(merged) -> dict | None:
 
 
 def init_plane(itu, pred, shape, device):
-    """Device: the plane [rows, pw] int32 before the scan.  The residuals
-    of the hoisted inter TUs (itu: hoist_inter's dict as device tensors,
-    or None) in one K1 launch for all sizes and one scatter, then
-    clip(pred + residual) everywhere; intra regions get values that the
-    scan overwrites."""
+    """Device: the plane [rows, pw] int32 before the scan.  With hoisted
+    inter TUs (itu: hoist_inter's dict as staged, or None), the prediction
+    plane `pred` (updated in place), or zeros, with each TU's residual
+    added at its position and clipped to 0..255 by ONE K1 launch (its
+    plane epilogue, all sizes); without, zeros.  Intra regions keep values
+    that the scan overwrites.  A CPU plane takes init_plane_ref, which
+    equals it wherever pred holds samples (0..255)."""
+    if torch.device(device).type == "cpu":
+        return init_plane_ref(itu, pred, shape, device)
+    if itu is None or pred is None:
+        plane = torch.zeros(shape, dtype=torch.int32, device=device)
+    else:
+        plane = pred
+    if itu is not None:
+        itransform.batch_residual_grouped(itu, plane=plane)
+    return plane
+
+
+def init_plane_ref(itu, pred, shape, device):
+    """Plain version of init_plane, the reference's composition: the
+    residuals of the hoisted inter TUs (one K1 call, its plain version on
+    CPU tensors) and one scatter into a zero plane, then clip(pred +
+    residual) over the whole plane; zeros without inter TUs."""
     plane = torch.zeros(shape, dtype=torch.int32, device=device)
     if itu is None:
         return plane
     pw = shape[1]
-    res = itransform.batch_residual_grouped(k1_fields(itu))
+    res = itransform.batch_residual_grouped(itu)
     idx, val = [], []
     for log2, d in itu.items():
         ar = torch.arange(1 << log2, device=device)
@@ -451,8 +486,8 @@ def run_scan(itu, fields, starts: dict, n_steps: int, pred, shape, device,
     outputs after stage()); starts_dev as pack_scan's.  Returns the plane
     [shape] int32."""
     plane = init_plane(itu, pred, shape, device)
-    return scan_plane(expand(fields, shape[1]), starts, n_steps, plane,
-                      after_step, starts_dev=starts_dev)
+    return scan_plane(expand(fields), starts, n_steps, plane, after_step,
+                      starts_dev=starts_dev)
 
 
 # ---------------------------------------------------------------------------

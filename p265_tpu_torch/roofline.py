@@ -49,7 +49,10 @@ bound):
   sample of its 4s+2.  Deblocking, SAO and the fetch count bytes only.
 - Stages: `mc` reads the references and the block records and writes the
   uint8 prediction samples of the inter PUs (K2 and the combine);
-  `residual` is K1 over every TU (levels in, residuals out); `scan` reads
+  `residual` is K1 over every TU (levels in, residuals out; since K1
+  adds the hoisted inter TUs' residuals to their prediction itself, those
+  read a prediction sample and write a reconstructed one where they
+  wrote a residual: two bytes a sample either way); `scan` reads
   each intra TU's residual, its record and its available reference
   samples (each once a TU) and writes its samples; `deblock` reads and
   writes every plane and reads one byte of edge parameters a 4x4 luma

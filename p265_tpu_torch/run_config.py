@@ -19,8 +19,10 @@ stream with tiles or WPP it also times the parse alone (the port's native
 CTU parse, no reconstruction) with the host lanes (parse_workers()) and
 with one lane, best of 3 each, in turns.  --profile adds one more pass
 under torch.profiler: each kernel's device time, in all and launch by
-launch, the device's idle share and the host-to-device copies (device ms
-of each, beside the pass's staging copies and bytes); then a serial
+launch, the device's operations and idle share, the host-to-device
+copies (device ms of each, beside the pass's staging copies and bytes)
+and the calls of the casts and selects (aten::_to_copy, aten::where) on
+every thread; then a serial
 TorchDecoder pass under torch.profiler gives each stage's device time
 (bench.stage_profile).  `run()` returns all of it as one record (report() prints it).
 """
@@ -219,21 +221,35 @@ KERNEL_SYMBOLS = {"itransform": "itransform_grouped_kernel",
                   "deblock": "deblock_tiles", "sao": "sao_tiles"}
 
 
+# the host-side operators whose calls profile_pass counts in its window:
+# casts and selects (the glue the kernels' wire dtypes and SAO's store
+# took off the card)
+COUNTED_OPS = ("aten::_to_copy", "aten::where")
+
+
 def profile_pass(data: bytes, device: str) -> dict:
     """One more pass under torch.profiler: device ms of each kernel of
     the port (KERNEL_SYMBOLS), in all and launch by launch (in launch
-    order), and of everything, wall ms, the device's idle share, and the
-    host-to-device copies (device ms of each, in order) beside the
-    pass's h2d_copies and h2d_bytes."""
+    order), and of everything, the device operations, wall ms, the
+    device's idle share, the host-to-device copies (device ms of each, in
+    order) beside the pass's h2d_copies and h2d_bytes, the calls of each
+    COUNTED_OPS operator on every thread (op_counts), and the device work
+    outside the port's kernels (other_ms, other_ops; other: (name, count,
+    ms) of each, largest first)."""
     from p265_tpu_torch.profile_decode import h2d_copies
     import torch
     from torch.autograd import DeviceType
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # every thread's operators: the pipelined decoder's worker runs them
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=_ExperimentalConfig(
+                     profile_all_threads=True)) as prof:
         p = decode_pass(data, device)
         torch.cuda.synchronize(device)
-    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    avg = prof.key_averages()
+    ev = [e for e in avg if e.device_type == DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in ev) / 1e3
     kernels = {k: sum(e.self_device_time_total for e in ev
                       if sym in e.key) / 1e3
@@ -244,11 +260,21 @@ def profile_pass(data: bytes, device: str) -> dict:
         for k, sym in KERNEL_SYMBOLS.items()}
     wall = p["seconds"] * 1e3
     h2d = h2d_copies(prof)
+    counts = {op: sum(e.count for e in avg if e.key == op
+                      and e.device_type == DeviceType.CPU)
+              for op in COUNTED_OPS}
+    # the rest of the device work: every other kernel and copy by name
+    glue = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                   for e in ev if not any(sym in e.key for sym in
+                                          KERNEL_SYMBOLS.values())),
+                  key=lambda r: -r[2])
     return dict(wall_ms=wall, device_ms=total, kernels_ms=kernels,
                 launches_ms=each, idle=1 - total / wall,
                 ops=sum(e.count for e in ev), h2d_ms=h2d,
                 h2d_copies=p["stats"].get("h2d_copies"),
-                h2d_bytes=p["stats"].get("h2d_bytes"))
+                h2d_bytes=p["stats"].get("h2d_bytes"), op_counts=counts,
+                other_ms=sum(r[2] for r in glue),
+                other_ops=sum(r[1] for r in glue), other=glue)
 
 
 def run(name: str, n_warm: int = 2, device: str = "cuda",
@@ -331,6 +357,11 @@ def report(rec: dict) -> None:
             f"bytes; {len(pr['h2d_ms'])} host-to-device copies in the "
             f"trace, {sum(pr['h2d_ms']):.4f} device ms (each: "
             + " ".join(f"{v:.4f}" for v in pr["h2d_ms"]) + ")")
+        log("  host operators in the window (every thread): " + ", ".join(
+            f"{k} {v}" for k, v in pr["op_counts"].items()))
+        log(f"  the rest of the device work: {pr['other_ops']} operations, "
+            f"{pr['other_ms']:.4f} ms; by name (count, ms): " + "; ".join(
+                f"{k[:90]} ({n}, {ms:.4f})" for k, n, ms in pr["other"]))
 
 
 def main(argv=None) -> int:

@@ -12,10 +12,12 @@ its plain version.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from p265_tpu_torch.kernels.loopfilter import on_cuda, sao_kernel, sao_maps
+from p265_tpu_torch.kernels.staging import widen
 from p265_tpu_torch.shard.mesh import (all_gather, halo_exchange_rows,
                                        join_rows, local_rows)
 from p265_tpu_torch.syntax.ctu import SAO_BAND, SAO_EDGE
@@ -61,12 +63,15 @@ def sao_rows(local, top, bot, ty_g, cls_g, offs_g, ctb: int, row0: int,
              total_h: int):
     """SAO of the row block [hl, W] int32 that starts at picture row row0,
     with its halo rows top and bot [1, W]; ty_g/cls_g [ny,nx] and offs_g
-    [4,ny,nx] are the plane's CTB maps (rows past the map take its last
-    CTB row; they lie past the picture and are cut off)."""
+    [4,ny,nx] int8 are the plane's CTB maps (rows past the map take its
+    last CTB row; they lie past the picture and are cut off; the plain
+    version also takes int32 maps)."""
     if on_cuda(local, "sao_rows"):
         return sao_kernel(torch.cat([top, local, bot])[None], ty_g[None],
                           cls_g[None], offs_g[None], ctb, row0, total_h,
                           halo=1)[0]
+    ty_g, cls_g, offs_g = (widen(t, torch.int32)
+                           for t in (ty_g, cls_g, offs_g))
     hl, W = local.shape
     dev = local.device
     ys = ((row0 + torch.arange(hl, device=dev)) // ctb).clamp(
@@ -96,8 +101,9 @@ def sao_sharded(plan, planes: list, group, device) -> list:
         hl = -(-H // (n * 8)) * 8      # row blocks on an 8-row grid
         local = local_rows(plane, rank, hl)
         top, bot = halo_exchange_rows(local, 1, group)
-        out = sao_rows(local, top, bot, *(torch.as_tensor(a).to(device)
-                                          for a in sao_maps(plan, c)),
+        # the CTB maps at the kernel's wire dtype, cast on the host
+        out = sao_rows(local, top, bot, *(torch.from_numpy(a.astype(
+            np.int8)).to(device) for a in sao_maps(plan, c)),
                        ctb, rank * hl, H)
         outs.append(join_rows(all_gather(out, group), H))
     return outs

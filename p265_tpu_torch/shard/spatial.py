@@ -289,8 +289,8 @@ def deblock_spatial(plan, planes: list, group, device) -> list:
     # zeroed edge params (no edge exists there), so their values are inert
     hl, hc = block_rows(H, n, 8), block_rows(Hc, n, 8)
 
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    def t(a):   # at the kernel's wire dtype, cast on the host
+        return torch.from_numpy(np.ascontiguousarray(a, np.int16)).to(device)
 
     y = local_rows(planes[0], rank, hl)
     ch = torch.stack([local_rows(planes[c], rank, hc) for c in (1, 2)])

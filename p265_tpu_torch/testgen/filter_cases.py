@@ -3,10 +3,13 @@
 against the JAX package: `deblock_case` builds planes and per-segment edge
 parameters for the vertical-edge filter, `deblock_planes_case` a batch's
 luma and chroma planes with the parameters of both directions (the
-`deblock_planes` layout), `sao_case` planes and per-CTB SAO maps, all
-NumPy int32 from a seeded generator; `layouts` lays planes out as the
-filters receive them, `row_blocks` cuts a plane as the row-sharded SAO
-does, and `tiled_deblock` is a model of the deblocking kernel's tiling.
+`deblock_planes` layout), `sao_case` planes and per-CTB SAO maps, and
+`bypass_masks` the bypass masks of the SAO store, all NumPy from a seeded
+generator, the planes int32 and the parameters at the wire dtypes the
+kernels read (pack_filter_params': the edge parameters int16, the SAO
+maps int8); `layouts` lays planes out as the filters receive them,
+`row_blocks` cuts a plane as the row-sharded SAO does, and
+`tiled_deblock` is a model of the deblocking kernel's tiling.
 
 The planes are 8-column blocks of a level each, the levels a random walk
 (small steps, some large), with noise of an amplitude that varies by
@@ -56,8 +59,8 @@ def n_edges(W: int) -> int:
 
 
 def deblock_case(rng, B: int, H: int, W: int, chroma: bool = False) -> dict:
-    """{"planes": [B,H,W], "tc": [B,H//4,n_e], and for luma "bs" and
-    "beta"} int32: a quarter of the segments have bS 0, and a tenth of the
+    """{"planes": [B,H,W] int32, "tc": [B,H//4,n_e], and for luma "bs" and
+    "beta"} int16: a quarter of the segments have bS 0, and a tenth of the
     rest beta or tc 0."""
     return dict(planes=planes(rng, B, H, W),
                 **_random_params(rng, (B, H // 4, n_edges(W)), chroma))
@@ -85,13 +88,13 @@ def _random_params(rng, shape, chroma: bool) -> dict:
     """The edge parameters of one grid: tc, and bs, beta for luma."""
     tc = rng.integers(0, 25, shape)
     tc[rng.random(shape) < 0.1] = 0
-    out = dict(tc=tc.astype(np.int32))
+    out = dict(tc=tc.astype(np.int16))
     if not chroma:
         bs = rng.integers(0, 3, shape)
         bs[rng.random(shape) < 0.25] = 0
         beta = rng.integers(0, 65, shape)
         beta[rng.random(shape) < 0.1] = 0
-        out.update(bs=bs.astype(np.int32), beta=beta.astype(np.int32))
+        out.update(bs=bs.astype(np.int16), beta=beta.astype(np.int16))
     return out
 
 
@@ -166,10 +169,11 @@ def _tiled(planes, pv: list, ph: list, fn, tile: tuple):
 
 
 def sao_case(rng, B: int, H: int, W: int, ctb: int) -> dict:
-    """{"src": [B,H,W], "ty", "cls": [B,ny,nx], "offs": [B,4,ny,nx]} int32
-    with ny, nx = ceil(H/ctb), ceil(W/ctb), as sao_maps builds them: the
-    CTB types off, band or edge (each about a third), band classes 0..31
-    with 28..31 at least once a plane, edge classes 0..3, offsets -7..7."""
+    """{"src": [B,H,W] int32, "ty", "cls": [B,ny,nx], "offs": [B,4,ny,nx]
+    int8} with ny, nx = ceil(H/ctb), ceil(W/ctb), as pack_filter_params
+    stages sao_maps: the CTB types off, band or edge (each about a third),
+    band classes 0..31 with 28..31 at least once a plane, edge classes
+    0..3, offsets -7..7."""
     ny, nx = -(-H // ctb), -(-W // ctb)
     ty = rng.choice([0, SAO_BAND, SAO_EDGE], (B, ny, nx))
     ty[:, 0, 0], ty[:, -1, -1] = SAO_BAND, SAO_EDGE
@@ -178,8 +182,20 @@ def sao_case(rng, B: int, H: int, W: int, ctb: int) -> dict:
     cls = np.where(ty == SAO_EDGE, rng.integers(0, 4, (B, ny, nx)), band)
     cls[ty == 0] = rng.integers(0, 32, int((ty == 0).sum()))
     offs = rng.integers(-7, 8, (B, 4, ny, nx))
-    return dict(src=planes(rng, B, H, W), ty=ty.astype(np.int32),
-                cls=cls.astype(np.int32), offs=offs.astype(np.int32))
+    return dict(src=planes(rng, B, H, W), ty=ty.astype(np.int8),
+                cls=cls.astype(np.int8), offs=offs.astype(np.int8))
+
+
+def bypass_masks(rng, B: int, H: int, W: int, unit: int = 8) -> np.ndarray:
+    """[B,H,W] bool masks of random unit x unit blocks (about a tenth of
+    them; the bypass CUs of a picture), one plane left without any."""
+    ny, nx = -(-H // unit), -(-W // unit)
+    blk = rng.random((B, ny, nx)) < 0.1
+    blk[0, 0, 0] = True
+    if B > 1:
+        blk[-1] = False
+    m = np.repeat(np.repeat(blk, unit, axis=1), unit, axis=2)
+    return np.ascontiguousarray(m[:, :H, :W])
 
 
 def layouts(a: np.ndarray, device) -> dict:

@@ -2,11 +2,14 @@
 the MC kernel (csrc/mc.cu) against their plain versions, and the plain
 versions against the JAX package.
 
-`residual_groups` builds one batch_residual_grouped call: TUs of the four
-sizes, each size with counts that leave a partial last tile, qp 0..51 in
-turn (so every size meets the left-shift branch of the dequant, qp/6 above
-its bit depth), DST, transform skip and bypass flags, optional scaling
-matrices (some all 255) and a few TUs of saturating levels (+-2^15).
+`residual_groups` builds one batch_residual_grouped call at the wire
+dtypes the kernel reads (levels int16 or int32, qp and scale_m uint8): TUs
+of the four sizes, each size with counts that leave a partial last tile,
+qp 0..51 in turn (so every size meets the left-shift branch of the
+dequant, qp/6 above its bit depth), DST, transform skip and bypass flags,
+optional scaling matrices (some all 255), a few TUs of saturating levels
+(+-2^15), and for the plane epilogue optional TU positions, each TU alone
+in a 32x32 tile of a plane.
 
 `pred_case` builds one picture for mc_pred_planes: reference stacks of
 random samples, and per plane (y, cb, cr) MC blocks of every bucket laid
@@ -29,9 +32,14 @@ TILE = 1024   # samples of a residual kernel tile (csrc/itransform.cu)
 
 
 def residual_groups(rng, n: int = 150, scale: bool = False,
-                    dtype=np.int16, sizes=(2, 3, 4, 5)) -> dict:
+                    dtype=np.int16, sizes=(2, 3, 4, 5),
+                    plane: tuple | None = None) -> dict:
     """{log2: fields} of batch_residual_grouped (module docstring): about
-    n TUs a size, never a whole number of tiles."""
+    n TUs a size, never a whole number of tiles.  plane (rows, cols): each
+    TU also gets a position `pos` [m,2] (uint16 below 65000 rows and
+    columns, else int32) in a 32x32 tile of its own, in the last 4096 rows
+    and columns of the plane (so past 32767 where the plane is that
+    large)."""
     out = {}
     for log2 in sizes:
         s = 1 << log2
@@ -45,12 +53,29 @@ def residual_groups(rng, n: int = 150, scale: bool = False,
         dst = (rng.random(m) < 0.4) if log2 == 2 else np.zeros(m, bool)
         tsk = (((rng.random(m) < 0.3) & ~dst) if log2 == 2
                else np.zeros(m, bool))
-        f = dict(coeffs=lv, qp=(np.arange(m) % 52).astype(np.int32),
+        f = dict(coeffs=lv, qp=(np.arange(m) % 52).astype(np.uint8),
                  is_dst=dst, tskip=tsk, bypass=rng.random(m) < 0.15)
         if scale:
-            f["scale_m"] = rng.integers(1, 256, (m, s, s)).astype(np.int32)
+            f["scale_m"] = rng.integers(1, 256, (m, s, s)).astype(np.uint8)
             f["scale_m"][:8] = 255
         out[log2] = f
+    if plane is not None:
+        rows, cols = plane
+        r0, c0 = max(0, rows - 4096) // 32, max(0, cols - 4096) // 32
+        ty, tx = rows // 32 - r0, cols // 32 - c0
+        total = sum(f["qp"].shape[0] for f in out.values())
+        if total > ty * tx:
+            raise ValueError(f"residual_groups: {total} TUs, {ty * tx} "
+                             f"tiles")
+        tiles = iter(rng.permutation(ty * tx).tolist())
+        dt = np.uint16 if max(rows, cols) < 65000 else np.int32
+        for log2, f in out.items():
+            s, m = 1 << log2, f["qp"].shape[0]
+            t = np.array([next(tiles) for _ in range(m)], np.int64)
+            f["pos"] = np.stack(
+                [(r0 + t // tx) * 32 + rng.integers(0, 32 // s, m) * s,
+                 (c0 + t % tx) * 32 + rng.integers(0, 32 // s, m) * s],
+                1).astype(dt)
     return out
 
 

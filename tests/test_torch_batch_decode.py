@@ -6,8 +6,10 @@ rows are checked to be padding; every field at the reference's wire dtype,
 also on synthetic tall planes whose coordinates pass 32767 -- and all
 four outputs of
 decode_batch_planes against the JAX decode_batch_planes, for a 2-frame
-intra batch and for a fused-MC P picture whose reference slabs come from
-slabs_from_numpy.  Bit-exact.
+intra batch, for intra pictures with lossless CUs (bypass masks: SAO's
+store restores their samples) and for a fused-MC P picture whose
+reference slabs come from slabs_from_numpy (the hoisted inter TUs through
+K1's plane epilogue).  Bit-exact.
 """
 import dataclasses
 
@@ -33,9 +35,9 @@ from p265_tpu_torch.pipeline.wavefront import SCAN_FIELDS
 from p265_tpu_torch.testgen.scan_cases import coord_plane
 
 
-def _intra(seed, w=128, h=64, qp=30):
-    sps = SPS(pic_width=w, pic_height=h)
-    pps = PPS(init_qp=qp, sign_data_hiding=True)
+def _intra(seed, w=128, h=64, qp=30, sps_kw=None, pps_kw=None):
+    sps = SPS(pic_width=w, pic_height=h, **(sps_kw or {}))
+    pps = PPS(init_qp=qp, sign_data_hiding=True, **(pps_kw or {}))
     stream, _, _ = IntraEncoder(sps, pps, qp=qp, seed=seed).encode_frame(
         make_test_image(w, h, seed))
     return GoldenDecoder().decode_stream(stream)[0]
@@ -224,3 +226,25 @@ def test_decode_batch_planes_fused_mc_matches_jax(p_picture):
     assert np.array_equal(got[2][0].numpy(), g.planes[0])
     assert np.array_equal(got[3][0].numpy(), g.planes[1])
     assert np.array_equal(got[3][1].numpy(), g.planes[2])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(pps_kw=dict(transquant_bypass_enabled=True)),
+    dict(sps_kw=dict(pcm_enabled=True, pcm_loop_filter_disabled=True))],
+    ids=["bypass", "pcm"])
+def test_decode_batch_planes_lossless_matches_jax(kw):
+    """Two intra pictures with lossless CUs in one batch (bypass masks in
+    the batch's filter arrays): all four uint8 outputs equal the JAX
+    decode_batch_planes' and golden's."""
+    golds = [_intra(s, w=96, h=64, **kw) for s in (3, 4)]
+    tplans = [build_tensor_plan(g.plan) for g in golds]
+    plans = [g.plan for g in golds]
+    batch = bd.build_batch(tplans, plans)
+    assert batch["meta"]["has_masks"]
+    want = jbd.decode_batch_planes(tplans, plans)
+    got = bd.decode_batch_planes(batch, None, "cpu")
+    _compare_outputs(got, want)
+    F = len(golds)
+    for f, g in enumerate(golds):
+        for c, p in enumerate((got[2][f], got[3][f], got[3][F + f])):
+            assert np.array_equal(p.numpy(), g.planes[c]), (f, c)

@@ -26,13 +26,26 @@ from p265_tpu_torch.kernels import loopfilter as lf
 from p265_tpu_torch.shard.filters import sao_rows
 from p265_tpu_torch.testgen import filter_cases as fc
 
-_deblock_luma = jax.vmap(jlf._deblock_luma_vertical.__wrapped__)
-_deblock_chroma = jax.vmap(jlf._deblock_chroma_vertical.__wrapped__)
+# the JAX device functions take the wire grids (int16 edge parameters,
+# int8 SAO maps) widened to int32, as p265_tpu/pipeline/batch_decode.py
+# widens them before it calls them
+def _i32(*arrays):
+    return [np.asarray(a, np.int32) for a in arrays]
+
+
+def _deblock_luma(planes, *params):
+    return jax.vmap(jlf._deblock_luma_vertical.__wrapped__)(
+        planes, *_i32(*params))
+
+
+def _deblock_chroma(planes, tc):
+    return jax.vmap(jlf._deblock_chroma_vertical.__wrapped__)(
+        planes, *_i32(tc))
 
 
 def _sao_jax(src, ty, cls, offs, ctb):
     return jax.vmap(jlf._sao_apply.__wrapped__, in_axes=(0, 0, 0, 0, None))(
-        src, ty, cls, offs, ctb)
+        src, *_i32(ty, cls, offs), ctb)
 
 
 def _deblock_planes_jax(luma, chroma, fp):

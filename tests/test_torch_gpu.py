@@ -9,7 +9,10 @@ JAX, which the port does not need):
 The decision is taken inside the fixture, never at import, so that every
 test process collects the same tests.
 """
+import functools
 import os
+import socket
+import sys
 
 import numpy as np
 import pytest
@@ -30,8 +33,8 @@ from p265_tpu_torch.shard.filters import sao_rows
 from p265_tpu_torch.testgen import conformance
 from p265_tpu_torch.testgen import filter_cases as fc
 from p265_tpu_torch.testgen import kernel_cases as kc
-from p265_tpu_torch.testgen.scan_cases import (random_scan, wide_scan,
-                                               work_items)
+from p265_tpu_torch.testgen.scan_cases import (coord_plane, random_scan,
+                                               wide_scan, work_items)
 
 
 @pytest.fixture
@@ -51,9 +54,9 @@ def test_itransform_kernel_matches_plain(cuda, log2, scale):
           * rng.integers(-300, 300, (n, s, s))).astype(np.int32)
     lv[:8] = rng.integers(-32768, 32768, (8, s, s))
     args = [torch.from_numpy(a).to(cuda) for a in (
-        lv, np.arange(n, dtype=np.int32) % 52, rng.random(n) < 0.4,
+        lv, (np.arange(n) % 52).astype(np.uint8), rng.random(n) < 0.4,
         rng.random(n) < 0.3, rng.random(n) < 0.1)]
-    sm = (torch.from_numpy(rng.integers(1, 256, (n, s, s)).astype(np.int32))
+    sm = (torch.from_numpy(rng.integers(1, 256, (n, s, s)).astype(np.uint8))
           .to(cuda) if scale else None)
     lvt, qp, dst, tsk, byp = args
     before = _build.LAUNCHES["itransform"]
@@ -134,13 +137,13 @@ def test_itransform_grouped_kernel_matches_plain(cuda):
               * rng.integers(-300, 300, (n, s, s))).astype(dt)
         lv[:8] = rng.integers(-32768, 32768, (8, s, s))
         t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
-        f = dict(coeffs=t(lv), qp=t(np.arange(n, dtype=np.int32) % 52),
+        f = dict(coeffs=t(lv), qp=t((np.arange(n) % 52).astype(np.uint8)),
                  tskip=t(rng.random(n) < 0.3))
         if opt:
             f.update(is_dst=t(rng.random(n) < 0.4),
                      bypass=t(rng.random(n) < 0.1),
                      scale_m=t(rng.integers(1, 256, (n, s, s)).astype(
-                         np.int32)))
+                         np.uint8)))
         groups[log2] = f
     before = _build.LAUNCHES["itransform"]
     got = itransform.batch_residual_grouped(groups)
@@ -311,7 +314,7 @@ def test_scan_kernel_matches_plain(cuda):
     itu = stage(wf.hoist_inter(merged), cuda)
     fields, starts = wf.scan_fields(wf.stack_plane(merged))
     plane = wf.init_plane(itu, pred, shape, cuda)
-    stacked = wf.expand(stage(fields, cuda), pw)
+    stacked = wf.expand(stage(fields, cuda))
     n = merged.n_steps
     before = _build.LAUNCHES["scan"]
     got = wf.scan_plane(stacked, starts, n, plane.clone())
@@ -542,3 +545,237 @@ def test_staged_dispatches_with_a_two_slot_ring(cuda, monkeypatch):
                                   g.prefilter[c]), (f.poc, c)
     assert not odd and not clones
     assert dec.stats["h2d_copies"] == len(dispatches) == 16
+
+
+@pytest.mark.parametrize("shape", [(256, 1920), (128, 40_000),
+                                   (128, 70_000)])
+@pytest.mark.parametrize("pred", ["prediction", "zeros"])
+def test_itransform_plane_epilogue_matches_plain(cuda, pred, shape):
+    """K1's plane epilogue (the hoisted inter TUs): every size in one
+    launch, at the wire dtypes, each TU alone in a 32x32 tile of the plane
+    (positions uint16 past 32767 at 40000 columns, int32 at 70000), added
+    in place to a random prediction plane or to zeros and clipped;
+    torch.equal to the plain version, the samples outside the TUs as they
+    were."""
+    rng = np.random.default_rng(shape[1] + len(pred))
+    for scale in (False, True):
+        groups = stage(kc.residual_groups(rng, 100, scale, plane=shape),
+                       cuda)
+        base = (rng.integers(0, 256, shape) if pred == "prediction"
+                else np.zeros(shape)).astype(np.int32)
+        plane = torch.from_numpy(base).to(cuda)
+        before = _build.LAUNCHES["itransform"]
+        got = itransform.batch_residual_grouped(groups, plane=plane.clone())
+        assert _build.LAUNCHES["itransform"] == before + 1
+        want = itransform.batch_residual_grouped_ref(groups,
+                                                     plane=plane.clone())
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), scale
+        assert not torch.equal(got, plane)
+
+
+@pytest.mark.parametrize("with_pred", [True, False])
+def test_init_plane_kernel_matches_plain(cuda, with_pred):
+    """init_plane on the card (one K1 launch with the plane epilogue) over
+    the prediction plane of the committed 96x64 LDP stream's P pictures,
+    or over none, against init_plane_ref on the same staged fields."""
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "p265_tpu_torch", "data",
+            "s96x64_ldp5.265"), "rb") as f:
+        gold = PortGolden().decode_stream(f.read())
+    seen = 0
+    for g in gold:
+        pps = build_tensor_plan(g.plan, {o.poc: o.planes for o in gold
+                                         if o.poc != g.poc}).planes
+        merged = wf.merge_segments(pps)
+        shape = (merged.shape[0] + wf.GUARD, merged.shape[1])
+        pred = (wf.attached_pred(pps, wf.segment_offsets(pps), shape, cuda)
+                if with_pred else None)
+        itu = wf.hoist_inter(merged)
+        if itu is None:
+            continue
+        seen += 1
+        dev = stage(itu, cuda)
+        want = wf.init_plane_ref(dev, None if pred is None else pred.clone(),
+                                 shape, cuda)
+        before = _build.LAUNCHES["itransform"]
+        got = wf.init_plane(dev, pred, shape, cuda)
+        assert _build.LAUNCHES["itransform"] == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), g.poc
+    assert seen >= 2
+
+
+@pytest.mark.parametrize("cols", [40_000, 70_000])
+def test_scan_kernel_wire_coordinates_match_plain(cuda, cols):
+    """The whole scan path of a 64-row plane 40000 columns wide (uint16
+    coordinates past 32767) and of one 70000 wide (int32),
+    testgen/scan_cases.py coord_plane with every TU alone in its tile and
+    a prediction under the inter TUs: reconstruct_scan_plane on the card
+    (K1's epilogue, K1, one scan launch) equals it on the CPU; then random
+    scans at int32 coordinates against the plain version."""
+    rng = np.random.default_rng(cols + 1)
+    pp = coord_plane(rng, (64, cols), exclusive=True, inter_pred=True)
+    before = dict(_build.LAUNCHES)
+    got = wf.reconstruct_scan_plane(pp, cuda)
+    assert _build.LAUNCHES["scan"] == before["scan"] + 1
+    assert _build.LAUNCHES["itransform"] == before["itransform"] + 2
+    want = wf.reconstruct_scan_plane(pp, "cpu")
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    for kw in ({}, dict(n_steps=4, per_size=560)):
+        st, sd, n, plane = random_scan(rng, cuda, coord=np.int32, **kw)
+        packed = wf.pack_scan(st, sd, n, cuda)
+        assert packed.coord_wide
+        got = wf.scan_packed(packed, plane.clone(), 0, n)
+        want = wf.scan_packed_ref(packed, plane.clone(), 0, n)
+        torch.cuda.synchronize()
+        assert not torch.equal(want, plane)
+        assert torch.equal(got, want)
+
+
+def test_kernels_refuse_widened_fields(cuda):
+    """No kernel wrapper casts: K1 refuses int32 qp, the scan int64
+    coordinates, the deblocking int32 grids, SAO int32 maps."""
+    rng = np.random.default_rng(1)
+    groups = stage(kc.residual_groups(rng, 9, True), cuda)
+    groups[3] = dict(groups[3], qp=groups[3]["qp"].to(torch.int32))
+    with pytest.raises(ValueError, match="qp must be"):
+        itransform.batch_residual_grouped(groups)
+    st, sd, n, _ = random_scan(rng, cuda, n_steps=4, per_size=8)
+    st[2] = dict(st[2], pos=st[2]["pos"].to(torch.int64))
+    with pytest.raises(ValueError, match="pack_scan"):
+        wf.pack_scan(st, sd, n, cuda)
+    c = fc.deblock_case(rng, *fc.SHAPES["chroma"], chroma=True)
+    with pytest.raises(ValueError, match="int16"):
+        lf.deblock_chroma_vertical(torch.from_numpy(c["planes"]).to(cuda),
+                                   torch.from_numpy(c["tc"]).to(cuda).to(
+                                       torch.int32))
+    c = fc.sao_case(rng, *fc.SHAPES["luma"], 16)
+    maps = [torch.from_numpy(c[k]).to(cuda).to(torch.int32)
+            for k in ("ty", "cls", "offs")]
+    with pytest.raises(ValueError, match="int8"):
+        lf.sao_apply(torch.from_numpy(c["src"]).to(cuda), *maps, 16)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("masks", [True, False])
+@pytest.mark.parametrize("plane", ["luma", "chroma"])
+def test_sao_uint8_epilogue_matches_plain(cuda, plane, masks, layout):
+    """SAO's store as the batch path calls it: uint8 out, and with bypass
+    masks the prefilter sample (a strided plane) where a mask is set, at
+    1080p widths; torch.equal to sao_apply_ref with the same keep and
+    dtype, and to the int32 kernel output restored and cast."""
+    rng = np.random.default_rng(len(layout) + masks)
+    shape, size = (((2, 1080, 1920), 64) if plane == "luma"
+                   else ((4, 540, 960), 32))
+    c = fc.sao_case(rng, *shape, size)
+    src = fc.layouts(c["src"], cuda)[layout]
+    pre = fc.layouts(fc.planes(rng, *shape), cuda)[layout]
+    maps = [torch.from_numpy(c[k]).to(cuda) for k in ("ty", "cls", "offs")]
+    keep = None
+    if masks:
+        keep = (pre, torch.from_numpy(fc.bypass_masks(rng, *shape)).to(cuda))
+    before = _build.LAUNCHES["sao"]
+    got = lf.sao_apply(src, *maps, size, keep, torch.uint8)
+    assert _build.LAUNCHES["sao"] == before + 1
+    want = lf.sao_apply_ref(src, *maps, size, keep, torch.uint8)
+    wide = lf.sao_apply(src, *maps, size)
+    if keep is not None:
+        wide = torch.where(keep[1], keep[0], wide)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint8 and got.is_contiguous()
+    assert torch.equal(got, want)
+    assert torch.equal(got, wide.to(torch.uint8))
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_and_golden(name: str):
+    from p265_tpu_torch.testgen.streams import get_stream
+    data = get_stream(name)
+    return data, PortGolden().decode_stream(data)
+
+
+def _bit_exact(got, gold):
+    assert [f.poc for f in got] == [g.poc for g in gold]
+    for f, g in zip(got, gold):
+        for c in range(3):
+            assert np.array_equal(np.asarray(f.planes[c]), g.planes[c]), (
+                f.poc, c)
+            pre = f.prefilter[c]
+            pre = pre.cpu().numpy() if isinstance(pre, torch.Tensor) else pre
+            assert np.array_equal(pre, g.prefilter[c]), (f.poc, c)
+
+
+def _wire_spies(monkeypatch) -> dict:
+    """Record, for CUDA tensors only: every staging.widen call (patched
+    in every module of the port that bound it), every .to() from a narrow
+    integer dtype to int32 or int64, every .to() from int32 to uint8, and
+    every init_plane_ref call."""
+    from p265_tpu_torch.kernels import staging
+    seen = {"widen": [], "widening_to": [], "to_u8": [], "init_plane_ref": []}
+    widen, to, ref = staging.widen, torch.Tensor.to, wf.init_plane_ref
+    narrow = (torch.uint8, torch.int8, torch.int16, torch.uint16, torch.bool)
+
+    def widen_spy(t, dtype):
+        if t.is_cuda:
+            seen["widen"].append((tuple(t.shape), t.dtype))
+        return widen(t, dtype)
+
+    def to_spy(self, *a, **k):
+        out = to(self, *a, **k)
+        if self.is_cuda and out.dtype != self.dtype:
+            if self.dtype in narrow and out.dtype in (torch.int32,
+                                                      torch.int64):
+                seen["widening_to"].append((tuple(self.shape), self.dtype,
+                                            out.dtype))
+            elif self.dtype == torch.int32 and out.dtype == torch.uint8:
+                seen["to_u8"].append(tuple(self.shape))
+        return out
+
+    def ref_spy(itu, pred, shape, device):
+        if torch.device(device).type == "cuda":
+            seen["init_plane_ref"].append(shape)
+        return ref(itu, pred, shape, device)
+
+    for name, mod in list(sys.modules.items()):
+        if name.startswith("p265_tpu_torch") and getattr(
+                mod, "widen", None) is widen:
+            monkeypatch.setattr(mod, "widen", widen_spy)
+    monkeypatch.setattr(torch.Tensor, "to", to_spy)
+    monkeypatch.setattr(wf, "init_plane_ref", ref_spy)
+    return seen
+
+
+def test_main_paths_read_the_wire_dtypes(cuda, monkeypatch):
+    """s1080_ldp4 through PipelinedTorchDecoder and through
+    TorchDecoder(fused=False), and s96x64_ldp5 on the space axis (one gloo
+    rank): bit-exact against golden, and no CUDA tensor goes through
+    staging.widen, a widening .to() or init_plane_ref; on the fused path
+    the only int32 -> uint8 casts are the prefilter planes' two a
+    dispatch (SAO's launches write the filtered planes as uint8)."""
+    import torch.distributed as dist
+    from p265_tpu_torch.pipeline.decoder import TorchDecoder
+    from p265_tpu_torch.shard.spatial import SpatialDecoder
+    data, gold = _stream_and_golden("s1080_ldp4")
+    small, small_gold = _stream_and_golden("s96x64_ldp5")
+    seen = _wire_spies(monkeypatch)
+    _build.reset_launch_counts()
+    dec = PipelinedTorchDecoder(cuda)
+    _bit_exact(dec.decode_stream(data), gold)
+    assert _build.LAUNCHES["sao"] == 8, dict(_build.LAUNCHES)
+    assert len(seen["to_u8"]) == 2 * len(gold), seen["to_u8"]
+    _bit_exact(TorchDecoder(cuda, fused=False).decode_stream(data), gold)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        _bit_exact(SpatialDecoder(dist.group.WORLD, cuda).decode_stream(
+            small), small_gold)
+    finally:
+        dist.destroy_process_group()
+    assert not seen["widen"], seen["widen"][:10]
+    assert not seen["widening_to"], seen["widening_to"][:10]
+    assert not seen["init_plane_ref"], seen["init_plane_ref"]

@@ -9,9 +9,14 @@ through the JAX `reconstruct_tpu_scan_plane` (whose `_scan_plane` is one
 committed 96x64 LDP, RA and PCM streams, and one intra picture from the
 port's encoder whose 32x32 luma TUs take the strong smoothing.  Then a
 split run [0, k) + [k, n) against one run, after_step once a step, and the
-devices the scan refuses.  The kernel itself runs on the card
-(tests/test_torch_gpu.py, chip_smoke.py).
+devices the scan refuses.  The record is the staged wire format
+(coordinates uint16 or int32, mode uint8): planes 40000 and 70000 columns
+wide (uint16 coordinates past 32767, int32 ones) against the JAX
+`_scan_plane`, random scans at both coordinate dtypes against each other.
+The kernel itself runs on the card (tests/test_torch_gpu.py,
+chip_smoke.py).
 """
+import dataclasses
 import functools
 import os
 
@@ -20,14 +25,16 @@ import pytest
 import torch
 
 import p265_tpu.pipeline.wavefront as jwf
+import p265_tpu.plan.frame_plan as jfp
 from p265_tpu.golden.decoder import GoldenDecoder
 from p265_tpu.plan.frame_plan import build_tensor_plan as jax_tensor_plan
 from p265_tpu_torch.hls.params import PPS, SPS
 from p265_tpu_torch.kernels.staging import stage
 from p265_tpu_torch.pipeline import wavefront as wf
 from p265_tpu_torch.testgen.encoder import IntraEncoder
-from p265_tpu_torch.testgen.scan_cases import (WIDE_TUS, random_scan,
-                                               wide_scan, work_items)
+from p265_tpu_torch.testgen.scan_cases import (WIDE_TUS, coord_plane,
+                                               random_scan, wide_scan,
+                                               work_items)
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "p265_tpu_torch", "data")
@@ -75,7 +82,7 @@ def _packed(name):
     itu = stage(wf.hoist_inter(merged), "cpu")
     fields, starts = wf.scan_fields(wf.stack_plane(merged))
     plane = wf.init_plane(itu, pred, shape, "cpu")
-    stacked = wf.expand(stage(fields, "cpu"), pw)
+    stacked = wf.expand(stage(fields, "cpu"))
     n = merged.n_steps
     return (wf.pack_scan(stacked, starts, n, "cpu"), stacked, starts, n,
             plane, total_h)
@@ -161,9 +168,9 @@ def test_random_scan_cases(kw):
     step_of, tile_of, refs = [], [], []
     for log2, d in stacked.items():
         step_of.append(np.repeat(np.arange(n), np.diff(starts[log2])))
-        pos = d["pos"].numpy()
+        pos = d["pos"].numpy().astype(np.int64)
         tile_of.append((pos[:, 0] // 32 - 1) * 32 + pos[:, 1] // 32)
-        idx, ok = d["ref_idx"].numpy(), d["ref_ok"].numpy()
+        idx, ok = wf.ref_index(d, 1024).numpy(), d["ref_ok"].numpy()
         y, x = idx // 1024, idx % 1024
         refs.append([set(((y[u] // 32 - 1) * 32 + x[u] // 32)
                          [ok[u] & (y[u] >= 32)].tolist())
@@ -204,9 +211,9 @@ def test_wide_scan_case():
         step_of = np.repeat(np.arange(n), np.diff(starts[log2]))
         assert np.bincount(step_of, minlength=n).tolist() == (
             [WIDE_TUS[log2]] * n)
-        pos = d["pos"].numpy()
+        pos = d["pos"].numpy().astype(np.int64)
         assert (pos[:, 0] // 32 == step_of + 1).all()
-        idx, ok = d["ref_idx"].numpy(), d["ref_ok"].numpy()
+        idx, ok = wf.ref_index(d, cols).numpy(), d["ref_ok"].numpy()
         inside = ok & (idx >= 0) & (idx < plane.numel())
         band = idx // cols // 32
         for u in range(len(idx)):
@@ -217,7 +224,8 @@ def test_wide_scan_case():
             else:
                 assert (b == 0).all()
     assert read_back > 0
-    tiles = np.concatenate([d["pos"].numpy() // 32 for d in stacked.values()])
+    tiles = np.concatenate([d["pos"].numpy().astype(np.int64) // 32
+                            for d in stacked.values()])
     assert len({tuple(t) for t in tiles}) == len(tiles)
     packed = wf.pack_scan(stacked, starts, n, "cpu")
     one = wf.scan_packed_ref(packed, plane.clone(), 0, n)
@@ -225,3 +233,50 @@ def test_wide_scan_case():
     split = wf.scan_packed_ref(packed, wf.scan_packed_ref(
         packed, plane.clone(), 0, 1), 1, n)
     assert torch.equal(split, one)
+
+
+@pytest.mark.parametrize("cols", [40_000, 70_000])
+def test_wire_coordinates_match_jax(cols):
+    """A 64-row plane 40000 columns wide (uint16 coordinates past 32767)
+    and one 70000 wide (int32): testgen/scan_cases.py coord_plane, every
+    TU alone in its tile, with a prediction plane that, as MC's, holds
+    samples under the inter TUs only; the whole scan path on CPU tensors
+    (hoist, stage, init_plane, expand at the wire dtypes, pack_scan,
+    scan_packed_ref) equals the JAX reconstruct_tpu_scan_plane (inter TUs
+    at step 1 of its lax.scan) on the same plan."""
+    rng = np.random.default_rng(cols + 1)
+    pp = coord_plane(rng, (64, cols), exclusive=True, inter_pred=True)
+    merged = wf.merge_segments([pp])
+    fields, _ = wf.scan_fields(wf.stack_plane(merged))
+    wire = torch.uint16 if cols < 65000 else torch.int32
+    staged = wf.expand(stage(fields, "cpu"))
+    for d in staged.values():
+        assert d["pos"].dtype == d["ref_ys"].dtype == wire
+        assert d["mode"].dtype == torch.uint8
+    assert max(int(wf.ref_index(d, cols).max() % cols)
+               for d in staged.values()) > 32767
+    got = wf.reconstruct_scan_plane(pp, "cpu")
+    jpp = jfp.PlanePlan(pp.plane_idx, pp.shape, pp.n_steps, {
+        log2: jfp.TuBatch(**{f.name: getattr(b, f.name)
+                             for f in dataclasses.fields(b)})
+        for log2, b in pp.batches.items()}, pp.inter_pred)
+    want = np.asarray(jwf.reconstruct_tpu_scan_plane(jpp))
+    assert np.array_equal(got.numpy(), want)
+    assert not np.array_equal(want, pp.inter_pred)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(n_steps=4, per_size=560)],
+                         ids=["random", "wide_steps"])
+def test_random_scan_coordinate_dtypes_agree(kw):
+    """The same random scan with uint16 and with int32 coordinates (they
+    differ only in the unavailable references past the plane, which are
+    never read): the plain version gives one plane."""
+    out = []
+    for coord in (np.uint16, np.int32):
+        stacked, starts, n, plane = random_scan(np.random.default_rng(9),
+                                                "cpu", coord=coord, **kw)
+        assert stacked[2]["ref_xs"].dtype == stage(
+            np.zeros(1, coord), "cpu").dtype
+        out.append(wf.scan_packed_ref(wf.pack_scan(stacked, starts, n,
+                                                   "cpu"), plane, 0, n))
+    assert torch.equal(out[0], out[1])

@@ -181,11 +181,16 @@ def test_widen_matches_wide_indices(cols):
     assert all(f["pos"].dtype == wire for f in itu.values())
     assert max(int(f["ref_xs"].max()) for f in fields.values()) > 32767
     dev = staging.stage(dict(itu=itu, tu=fields), "cpu")
-    stacked = wf.expand(dev["tu"], cols)
+    stacked = wf.expand(dev["tu"])
     for log2, (idx, pos, ipos) in want.items():
-        assert stacked[log2]["ref_idx"].dtype == torch.int64
-        assert np.array_equal(stacked[log2]["ref_idx"].numpy(), idx)
-        assert np.array_equal(stacked[log2]["pos"].numpy(), pos)
+        # the scan reads the staged coordinates as they are; the plain
+        # version's flat indices are the wide path's
+        assert stacked[log2]["ref_ys"].dtype == staging.torch_dtype(wire)
+        got = wf.ref_index(stacked[log2], cols)
+        assert got.dtype == torch.int64
+        assert np.array_equal(got.numpy(), idx)
+        assert np.array_equal(
+            staging.widen(stacked[log2]["pos"], torch.int64).numpy(), pos)
         assert np.array_equal(
             staging.widen(dev["itu"][log2]["pos"], torch.int64).numpy(),
             ipos)
