@@ -1258,7 +1258,7 @@ def _device_ms(fn, calls, symbol, reps: int = 10):
                 fn(*a, **k)
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation
              and (symbol is None or symbol in e.key))
     return us / 1e3 / reps if us else None
 

@@ -48,13 +48,16 @@ def _cmd_decode(args) -> int:
     if dec.errors:
         print(f"{len(dec.errors)} corrupt slices skipped (resynced at IRAP)",
               file=sys.stderr)
-    # the torch backend's stages: recon is the pack + device dispatch, the
-    # filters run inside it, and the copy to the host is its own stage
-    last = (f"{dec.stats['fetch_s']:.2f}s fetch" if "fetch_s" in dec.stats
-            else f"{dec.stats['filter_s']:.2f}s filters")
-    print(f"decoded {len(frames)} frames "
-          f"({dec.stats['parse_s']:.2f}s parse, "
-          f"{dec.stats['recon_s']:.2f}s recon, {last})")
+    # the torch backend's stages: the motion replay after the parse,
+    # recon is the pack + device dispatch, the filters run inside it, and
+    # the copy to the host is its own stage
+    st = dec.stats
+    replay = (f"{st['finalize_s']:.2f}s motion replay, "
+              if "finalize_s" in st else "")
+    last = (f"{st['fetch_s']:.2f}s fetch" if "fetch_s" in st
+            else f"{st['filter_s']:.2f}s filters")
+    print(f"decoded {len(frames)} frames ({st['parse_s']:.2f}s parse, "
+          f"{replay}{st['recon_s']:.2f}s recon, {last})")
     return 0
 
 

@@ -28,10 +28,11 @@ read a uint16 leaf through `widen`, never with arithmetic or indexing.
 from __future__ import annotations
 
 import threading
-import time
 
 import numpy as np
 import torch
+
+from p265_tpu_torch.spans import span
 
 # leaf offsets in the staging buffer: K1 stages levels and scale_m by
 # 16-byte cp.async; 64 keeps every leaf on its own cache-line boundary
@@ -151,20 +152,18 @@ class StagingRing:
         return dev
 
     def stage(self, tree, stats: dict | None = None):
-        t0 = time.perf_counter()
-        arrays = [np.asarray(a) for a in leaves(tree)]
-        offs, nbytes = layout(arrays)
-        if not nbytes:
-            dev = torch.empty(0, dtype=torch.uint8, device=self.device)
-        else:
-            with self._lock:
-                slot, buf = self.acquire(nbytes)
-                fill(buf, arrays, offs)
-                dev = self.send(slot, buf, nbytes)
-        out = _rebuild(tree, iter(views(dev, arrays, offs)))
+        with span(stats, "upload"):
+            arrays = [np.asarray(a) for a in leaves(tree)]
+            offs, nbytes = layout(arrays)
+            if not nbytes:
+                dev = torch.empty(0, dtype=torch.uint8, device=self.device)
+            else:
+                with self._lock:
+                    slot, buf = self.acquire(nbytes)
+                    fill(buf, arrays, offs)
+                    dev = self.send(slot, buf, nbytes)
+            out = _rebuild(tree, iter(views(dev, arrays, offs)))
         if stats is not None:
-            stats["upload_s"] = (stats.get("upload_s", 0.0)
-                                 + time.perf_counter() - t0)
             stats["h2d_bytes"] = stats.get("h2d_bytes", 0) + nbytes
             stats["h2d_copies"] = stats.get("h2d_copies", 0) + (nbytes > 0)
         return out
@@ -195,8 +194,8 @@ def stage(tree, device, stats: dict | None = None):
     """A tree (dicts, lists, tuples, None) of NumPy arrays -> the same tree
     with each leaf a tensor on `device` at its own dtype and shape, every
     leaf a view of one buffer filled by ONE copy.  stats: optional dict
-    accumulating upload_s (host seconds to the enqueued copy, the fill
-    included), h2d_bytes and h2d_copies."""
+    accumulating upload_s and upload_cpu_s (host seconds to the enqueued
+    copy, the fill included; spans.span), h2d_bytes and h2d_copies."""
     return ring(device).stage(tree, stats)
 
 

@@ -40,6 +40,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from p265_tpu_torch.pipeline.decoder import TorchDecoder, fetch_planes
+from p265_tpu_torch.spans import span
 
 
 class PipelinedTorchDecoder(TorchDecoder):
@@ -61,14 +62,18 @@ class PipelinedTorchDecoder(TorchDecoder):
                 target=self._run_worker, name="p265-torch-recon",
                 daemon=True)
             self._worker.start()
-        self._q.put(group)
+        self._q.put((time.perf_counter(), group))
 
     def _run_worker(self) -> None:
         while True:
-            group = self._q.get()
+            item = self._q.get()
             try:
-                if group is None:
+                if item is None:
                     return
+                t_put, group = item
+                # each picture of the group waited from the put to the get
+                self.stats["queue_wait_s"] += ((time.perf_counter() - t_put)
+                                               * len(group))
                 if self._worker_err is None:
                     self._run_recon_group(group)
             except Exception as e:  # noqa: BLE001 -- re-raised by flush()
@@ -89,9 +94,8 @@ class PipelinedTorchDecoder(TorchDecoder):
             self._materialize, task["frame"], task["pic"].planes, event))
 
     def _materialize(self, frame, planes, event) -> None:
-        t0 = time.perf_counter()
-        frame.planes = fetch_planes(planes, event, self._fetch_stream)
-        self.stats["fetch_s"] += time.perf_counter() - t0
+        with span(self.stats, "fetch"):
+            frame.planes = fetch_planes(planes, event, self._fetch_stream)
 
     def _drain_recon(self) -> None:
         """Close the open group, wait for every queued picture and its

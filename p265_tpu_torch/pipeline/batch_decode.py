@@ -31,8 +31,6 @@ arrays keep their exact shapes.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -43,11 +41,7 @@ from p265_tpu_torch.kernels.staging import stage
 from p265_tpu_torch.pipeline.wavefront import (
     GUARD, attached_pred, hoist_inter, merge_segments, run_scan, scan_fields,
     segment_offsets, stack_plane, step_starts)
-
-
-def _add(stats, key: str, seconds: float) -> None:
-    if stats is not None:
-        stats[key] = stats.get(key, 0.0) + seconds
+from p265_tpu_torch.spans import span
 
 
 def build_batch(tplans: list, plans: list, mc: list | None = None,
@@ -63,34 +57,35 @@ def build_batch(tplans: list, plans: list, mc: list | None = None,
     filtered with ONE set of flags, so pictures whose flags differ raise),
     "mc", "pcm" (flat indices into the tall plane and samples of every PCM
     TU, or None) and "attached" (the PlanePlans and their segment offsets,
-    for their inter_pred).  stats: optional dict accumulating pack_s."""
-    t0 = time.perf_counter()
-    F = len(tplans)
-    sps = plans[0].sps
-    H, W = sps.pic_height, sps.pic_width
-    Hc, Wc = H >> 1, W >> 1
-    pps_ = ([tp.planes[0] for tp in tplans] + [tp.planes[1] for tp in tplans]
-            + [tp.planes[2] for tp in tplans])
-    merged = merge_segments(pps_)
-    itu = hoist_inter(merged)
-    fp = pack_filter_params(plans)
-    deblock_on, sao_luma, sao_chroma = filter_flags(plans[0])
+    for their inter_pred).  stats: optional dict accumulating pack_s
+    and pack_cpu_s (spans.span)."""
+    with span(stats, "pack"):
+        F = len(tplans)
+        sps = plans[0].sps
+        H, W = sps.pic_height, sps.pic_width
+        Hc, Wc = H >> 1, W >> 1
+        pps_ = ([tp.planes[0] for tp in tplans]
+                + [tp.planes[1] for tp in tplans]
+                + [tp.planes[2] for tp in tplans])
+        merged = merge_segments(pps_)
+        itu = hoist_inter(merged)
+        fp = pack_filter_params(plans)
+        deblock_on, sao_luma, sao_chroma = filter_flags(plans[0])
 
-    seg_h, seg_hc = H + GUARD, Hc + GUARD
-    stamps = [st for f, p in enumerate(plans) if (st := pcm_samples(
-        p, segment_rows(F, f, seg_h, seg_hc), merged.shape[1])) is not None]
-    pcm = (None if not stamps else
-           tuple(np.concatenate(a) for a in zip(*stamps)))
+        seg_h, seg_hc = H + GUARD, Hc + GUARD
+        stamps = [st for f, p in enumerate(plans) if (st := pcm_samples(
+            p, segment_rows(F, f, seg_h, seg_hc), merged.shape[1]))
+            is not None]
+        pcm = (None if not stamps else
+               tuple(np.concatenate(a) for a in zip(*stamps)))
 
-    meta = dict(F=F, shape=merged.shape, seg_h=seg_h, seg_hc=seg_hc,
-                H=H, W=W, Hc=Hc, Wc=Wc, deblock=deblock_on,
-                sao_luma=sao_luma, sao_chroma=sao_chroma,
-                ctb=sps.ctb_size, has_masks="mask_y" in fp)
-    batch = dict(meta=meta, tu=stack_plane(merged), n_steps=merged.n_steps,
-                 itu=itu, fp=fp, mc=mc, pcm=pcm,
-                 attached=(pps_, segment_offsets(pps_)))
-    _add(stats, "pack_s", time.perf_counter() - t0)
-    return batch
+        meta = dict(F=F, shape=merged.shape, seg_h=seg_h, seg_hc=seg_hc,
+                    H=H, W=W, Hc=Hc, Wc=Wc, deblock=deblock_on,
+                    sao_luma=sao_luma, sao_chroma=sao_chroma,
+                    ctb=sps.ctb_size, has_masks="mask_y" in fp)
+        return dict(meta=meta, tu=stack_plane(merged),
+                    n_steps=merged.n_steps, itu=itu, fp=fp, mc=mc, pcm=pcm,
+                    attached=(pps_, segment_offsets(pps_)))
 
 
 def segment_rows(F: int, f: int, seg_h: int, seg_hc: int) -> tuple:
@@ -108,7 +103,8 @@ def decode_batch_planes(batch: dict, refs, device,
     frames may differ in length.  stats: optional dict accumulating
     stage()'s upload_s, h2d_bytes and h2d_copies (every array of the
     batch, the scan's step starts included, in one copy) and dispatch_s
-    (the host time of enqueueing the device work)."""
+    (the host time of enqueueing the device work), each wall key with its
+    _cpu_s beside it (spans.span)."""
     device = torch.device(device)
     m = batch["meta"]
     F, H, W, Hc, Wc = m["F"], m["H"], m["W"], m["Hc"], m["Wc"]
@@ -120,46 +116,47 @@ def decode_batch_planes(batch: dict, refs, device,
                      itu=batch["itu"], tu=tu,
                      starts=step_starts(starts, batch["n_steps"])),
                 device, stats)
-    t1 = time.perf_counter()
+    with span(stats, "dispatch"):
+        # 1. MC prediction planes at each frame's segment offsets: one MC
+        #    launch per frame writes the frame's samples straight into the
+        #    tall plane; has_bi comes from the host arrays, so no sync;
+        #    then the PCM samples, one scatter over them.  MC owns its
+        #    frames' segments: where an attached prediction lies under
+        #    them (no decoder path attaches one to a frame with device
+        #    MC), they are zeroed first
+        pred = attached_pred(*batch["attached"], shape, device)
+        attached = pred is not None
+        if pred is None and (dev["mc"] is not None
+                             or dev["pcm"] is not None):
+            pred = torch.zeros(shape, dtype=torch.int32, device=device)
+        if dev["mc"] is not None:
+            shapes = ((H, W), (Hc, Wc), (Hc, Wc))
+            for f, (fmc, rf) in enumerate(zip(dev["mc"], refs)):
+                offs = segment_rows(F, f, seg_h, seg_hc)
+                if attached:
+                    for oy, (h, w) in zip(offs, shapes):
+                        pred[oy:oy + h, :w] = 0
+                mc_pred_planes(rf, fmc, shapes, uses_l1(batch["mc"][f]),
+                               out=(pred, offs))
+        if dev["pcm"] is not None:
+            idx, val = dev["pcm"]
+            pred.view(-1)[idx] = val
 
-    # 1. MC prediction planes at each frame's segment offsets: one MC
-    #    launch per frame writes the frame's samples straight into the tall
-    #    plane; has_bi comes from the host arrays, so no sync; then the PCM
-    #    samples, one scatter over them.  MC owns its frames' segments:
-    #    where an attached prediction lies under them (no decoder path
-    #    attaches one to a frame with device MC), they are zeroed first
-    pred = attached_pred(*batch["attached"], shape, device)
-    attached = pred is not None
-    if pred is None and (dev["mc"] is not None or dev["pcm"] is not None):
-        pred = torch.zeros(shape, dtype=torch.int32, device=device)
-    if dev["mc"] is not None:
-        shapes = ((H, W), (Hc, Wc), (Hc, Wc))
-        for f, (fmc, rf) in enumerate(zip(dev["mc"], refs)):
-            offs = segment_rows(F, f, seg_h, seg_hc)
-            if attached:
-                for oy, (h, w) in zip(offs, shapes):
-                    pred[oy:oy + h, :w] = 0
-            mc_pred_planes(rf, fmc, shapes, uses_l1(batch["mc"][f]),
-                           out=(pred, offs))
-    if dev["pcm"] is not None:
-        idx, val = dev["pcm"]
-        pred.view(-1)[idx] = val
+        # 2.-3. hoisted inter TUs, intra residuals, wavefront scan
+        plane = run_scan(dev["itu"], dev["tu"], starts, batch["n_steps"],
+                         pred, shape, device, starts_dev=dev["starts"])
 
-    # 2.-3. hoisted inter TUs, intra residuals, wavefront scan
-    plane = run_scan(dev["itu"], dev["tu"], starts, batch["n_steps"], pred,
-                     shape, device, starts_dev=dev["starts"])
+        # split the tall plane (F*seg_h + 2F*seg_hc rows, the guard
+        # included) into [F] luma and [2F] chroma batches
+        pre_luma = plane[:F * seg_h].reshape(F, seg_h, pw)[:, :H, :W]
+        pre_chroma = plane[F * seg_h:].reshape(2 * F, seg_hc,
+                                               pw)[:, :Hc, :Wc]
 
-    # split the tall plane (F*seg_h + 2F*seg_hc rows, the guard included)
-    # into [F] luma and [2F] chroma batches
-    pre_luma = plane[:F * seg_h].reshape(F, seg_h, pw)[:, :H, :W]
-    pre_chroma = plane[F * seg_h:].reshape(2 * F, seg_hc, pw)[:, :Hc, :Wc]
-
-    # 4.-5. deblocking, SAO with the bypass samples, uint8 out
-    luma, chroma = filter_planes(pre_luma, pre_chroma, dev["fp"], m["ctb"])
-    out = (pre_luma.to(torch.uint8), pre_chroma.to(torch.uint8), luma,
-           chroma)
-    _add(stats, "dispatch_s", time.perf_counter() - t1)
-    return out
+        # 4.-5. deblocking, SAO with the bypass samples, uint8 out
+        luma, chroma = filter_planes(pre_luma, pre_chroma, dev["fp"],
+                                     m["ctb"])
+        return (pre_luma.to(torch.uint8), pre_chroma.to(torch.uint8), luma,
+                chroma)
 
 
 def decode_batch(tplans: list, plans: list, device):

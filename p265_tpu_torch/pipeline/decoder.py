@@ -24,6 +24,14 @@ from p265_tpu_torch.pipeline.batch_decode import (build_batch,
 from p265_tpu_torch.pipeline.wavefront import reconstruct_scan
 from p265_tpu_torch.plan.frame_plan import (attach_pred_planes,
                                             build_tensor_plan)
+from p265_tpu_torch.spans import span
+
+# the spans of TorchDecoder.stats (spans.py), by the one thread that
+# writes each: the caller's (the parse thread) finalize and tensor_plan;
+# the recon worker mc_pack, pack, upload and dispatch; the fetch (the
+# fetch worker in PipelinedTorchDecoder, the recon worker here) fetch
+SPANS = ("finalize", "tensor_plan", "mc_pack", "pack", "upload", "dispatch",
+         "fetch")
 
 
 def slabs_from_numpy(planes, device) -> list:
@@ -116,13 +124,35 @@ class TorchDecoder(DecoderBase):
         self.fused = fused and apply_filters and filters_on_device
         self.frame_dag_max = frame_dag_max if self.fused else 1
         self._open: list = []       # the open frame-DAG group
-        self.stats.update(fetch_s=0.0, h2d_bytes=0, h2d_copies=0)
+        # every key exists before the first picture, and each is written
+        # by one thread only; queue_wait_s (the recon worker's) sums each
+        # picture's wait for the recon worker, 0 where nothing queues
+        self.stats.update({k + sfx: 0.0 for k in SPANS
+                           for sfx in ("_s", "_cpu_s")})
+        self.stats.update(queue_wait_s=0.0, h2d_bytes=0, h2d_copies=0)
+
+    def _finish_picture(self) -> None:
+        """DecoderBase's, with the motion replay and the SAO records
+        (`finalize`, idempotent) run first inside the `finalize` span; an
+        incomplete picture goes straight to DecoderBase, which raises."""
+        pic_st = self._pic
+        ns = None if pic_st is None else getattr(pic_st["plan"], "nstate",
+                                                  None)
+        if ns is not None and pic_st["ctbs"] == pic_st["sps"].num_ctbs:
+            try:
+                with span(self.stats, "finalize"):
+                    ns.finalize(pic_st["plan"], pic_st["mctx"])
+            except BaseException:
+                self._pic = None    # as DecoderBase drops it
+                raise
+        super()._finish_picture()
 
     def _build_tplan(self, plan):
         ns = getattr(plan, "nstate", None)
         if ns is not None:
             ns.finalize(plan)  # plan.sao must exist before filter packing
-        return build_tensor_plan(plan, skip_pred=True)
+        with span(self.stats, "tensor_plan"):
+            return build_tensor_plan(plan, skip_pred=True)
 
     # -- scheduling: the frame DAG, grouped while the stream is parsed ------
     def _schedule_recon(self, task: dict) -> None:
@@ -181,14 +211,15 @@ class TorchDecoder(DecoderBase):
         mc = refs = None
         if any(p.pus for p in plans):
             mc, refs = [], []
-            for t, plan in zip(tasks, plans):
-                poc_list = sorted(t["refs"])
-                mc.append(mc_arrays_padded(
-                    plan, {p: i for i, p in enumerate(poc_list)},
-                    mc_block_counts(plan)))
-                refs.append(ref_stacks(
-                    {p: r.planes for p, r in t["refs"].items()}, poc_list,
-                    self.device))
+            with span(self.stats, "mc_pack"):
+                for t, plan in zip(tasks, plans):
+                    poc_list = sorted(t["refs"])
+                    mc.append(mc_arrays_padded(
+                        plan, {p: i for i, p in enumerate(poc_list)},
+                        mc_block_counts(plan)))
+                    refs.append(ref_stacks(
+                        {p: r.planes for p, r in t["refs"].items()},
+                        poc_list, self.device))
         batch = build_batch(tplans, plans, mc=mc, stats=self.stats)
         pl, pc, fl, fc = decode_batch_planes(batch, refs, self.device,
                                              stats=self.stats)
@@ -256,9 +287,8 @@ class TorchDecoder(DecoderBase):
 
     def _fetch(self, task: dict) -> None:
         """The picture's output planes to the host (frame.planes)."""
-        t0 = time.perf_counter()
-        task["frame"].planes = fetch_planes(task["pic"].planes)
-        self.stats["fetch_s"] += time.perf_counter() - t0
+        with span(self.stats, "fetch"):
+            task["frame"].planes = fetch_planes(task["pic"].planes)
 
 
 def fetch_planes(planes, event=None, stream=None) -> list:

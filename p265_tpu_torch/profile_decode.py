@@ -120,8 +120,9 @@ def _profile_window(data: bytes, dag: int) -> None:
         dec.decode_stream(data)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # the device-side copies of record_function ranges are not work
     dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
+           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     dev_us = sum(e.self_device_time_total for e in dev)
     n_ops = sum(e.count for e in dev)
     print(f"pipelined pass under torch.profiler: wall {wall:.4f} s, device "

@@ -255,7 +255,9 @@ def profile_pass(data: bytes, device: str) -> dict:
         p = decode_pass(data, device)
         torch.cuda.synchronize(device)
     avg = prof.key_averages()
-    ev = [e for e in avg if e.device_type == DeviceType.CUDA]
+    # the device-side copies of record_function ranges are not work
+    ev = [e for e in avg
+          if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     total = sum(e.self_device_time_total for e in ev) / 1e3
     kernels = {k: sum(e.self_device_time_total for e in ev
                       if sym in e.key) / 1e3

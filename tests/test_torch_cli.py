@@ -90,8 +90,10 @@ def test_decode_metrics(ldp, tmp_path, pipelined):
     rec = json.loads(met.read_text())
     assert rec["frames"] == 3
     for key in ("parse_s", "pack_s", "upload_s", "dispatch_s", "recon_s",
-                "slice_bytes", "tus", "ctbs", "parse_mb_s"):
+                "slice_bytes", "tus", "ctbs", "parse_mb_s", "finalize_s",
+                "tensor_plan_s", "mc_pack_s"):
         assert rec[key] > 0, key
+    assert rec["queue_wait_s"] >= 0
 
 
 def test_decode_resilient(tmp_path, capsys):
