@@ -1,7 +1,9 @@
 # Copy of p265_tpu/native/__init__.py.  Deviations: the library is built
 # into p265_tpu_torch/build/ (gitignored), not beside its source, and is
 # written under a temporary name and renamed into place, so processes
-# that build at once never load a half-written file.
+# that build at once never load a half-written file; it is built from
+# replay.c (the motion replay, which includes ctu.c), and _build takes
+# its sources and library path as arguments.
 """Native CABAC fast lane: builds cabac.c with the system compiler, loads it
 via ctypes, and exposes drop-in decoder/context classes.
 
@@ -22,6 +24,7 @@ from p265_tpu_torch.tables import CTX_OFFSET, NUM_CTX, init_context_array
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "cabac.c")
 _SRC_CTU = os.path.join(_DIR, "ctu.c")  # includes cabac.c (single TU)
+_SRC_REPLAY = os.path.join(_DIR, "replay.c")  # includes ctu.c
 _SO = os.path.join(os.path.dirname(_DIR), "build", "_cabac.so")
 
 _lib = None
@@ -46,18 +49,19 @@ class _CtxOffsets(ctypes.Structure):
                  "sig", "gt1", "gt2")]
 
 
-def _build() -> bool:
+def _build(srcs=(_SRC, _SRC_CTU, _SRC_REPLAY), so=_SO) -> bool:
+    """Compile the last of `srcs` that exists (each includes the one
+    before it) into `so`, unless `so` is newer than all of them."""
     try:
-        src = _SRC_CTU if os.path.exists(_SRC_CTU) else _SRC
-        newest = max(os.path.getmtime(p) for p in (_SRC, _SRC_CTU)
-                     if os.path.exists(p))
-        if not os.path.exists(_SO) or os.path.getmtime(_SO) < newest:
-            os.makedirs(os.path.dirname(_SO), exist_ok=True)
-            tmp = f"{_SO}.{os.getpid()}.tmp"
+        present = [p for p in srcs if os.path.exists(p)]
+        newest = max(os.path.getmtime(p) for p in present)
+        if not os.path.exists(so) or os.path.getmtime(so) < newest:
+            os.makedirs(os.path.dirname(so), exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
             subprocess.run(
-                ["cc", "-O3", "-fPIC", "-shared", "-o", tmp, src],
+                ["cc", "-O3", "-fPIC", "-shared", "-o", tmp, present[-1]],
                 check=True, capture_output=True)
-            os.replace(tmp, _SO)
+            os.replace(tmp, so)
         return True
     except Exception:
         return False

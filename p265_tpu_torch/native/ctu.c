@@ -1,5 +1,6 @@
-// Copy of p265_tpu/native/ctu.c.  Deviation: one comment names
-// build_tensor_plan by its function name.
+// Copy of p265_tpu/native/ctu.c.  Deviations: one comment names
+// build_tensor_plan by its function name; the event stream's comment
+// names the motion replay in C (replay.c).
 /* Native Stage-A CTU parser (intra slices): SAO params + coding quadtree +
  * CU/TU syntax + residual decode for one CTU per call, emitting the
  * size-bucketed tensor-plan records (positions, wavefront steps, reference
@@ -126,9 +127,10 @@ typedef struct {
 
 /* motion-syntax event stream (P/B slices): the C parser records per-CU and
  * per-PU SYNTAX only -- merge/AMVP candidate derivation does not affect the
- * bitstream, so it replays in Python afterwards (native/parse.py
- * replay_motion), walking these events in z-order with its own availability
- * grid to reproduce the parse-time neighborhood exactly. */
+ * bitstream, so it replays afterwards in C (replay.c, one call a picture
+ * from native/parse.py replay_motion), walking these events in z-order
+ * with its own availability grid to reproduce the parse-time neighborhood
+ * exactly. */
 #define EV_W 20
 #define EV_CU 0              /* [0, x0, y0, log2] (every CU, any pred mode) */
 #define EV_PU 1              /* [1, x, y, w, h, part, part_idx, merge,

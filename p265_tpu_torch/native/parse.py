@@ -1,3 +1,8 @@
+# Copy of p265_tpu/native/parse.py.  Deviations: the motion replay runs in
+# C (replay.c), one call a picture that releases the interpreter lock;
+# replay_motion returns its PU table, from which finalize builds plan.pus
+# (replay.py pu_records); finalize reads the SAO records through one
+# tolist().
 """Native Stage-A slice parsing: ctypes bindings for ctu.c's per-CTU parser
 plus vectorized tensor-plan assembly.
 
@@ -11,8 +16,9 @@ Supported natively: I, P and B slices without PCM (syntax/ctu.py remains
 the reference and the fallback; tests assert the two parsers agree
 bit-exactly on the decoded YUV).  For inter slices the C parser records
 per-PU SYNTAX only (merge idx / mvd / ref idx / mvp flags): candidate
-derivation never affects the bitstream, so replay_motion() re-runs
-golden/mv.py's merge/AMVP derivation over the event stream afterwards,
+derivation never affects the bitstream, so replay_motion() re-runs the
+merge/AMVP derivation over the event stream afterwards, in C (replay.c,
+golden/mv.py's derivation mirrored bit for bit, one call a picture),
 reproducing the parse-time availability neighborhood with a replay grid.
 """
 from __future__ import annotations
@@ -375,95 +381,30 @@ class NativeParseState:
         if getattr(self, "_finalized", False):
             return
         self._finalized = True
-        self.replay_motion(plan, mctx)
+        table = self.replay_motion(plan, mctx)
+        if table is not None:
+            from p265_tpu_torch.native.replay import pu_records
+            self.replayed_pus = len(table)
+            plan.pus.extend(pu_records(table))
         from p265_tpu_torch.syntax.ctu import SaoRec
-        rec = self.sao.reshape(-1, 20)
-        out = []
-        for a in range(rec.shape[0]):
-            r = rec[a]
-            out.append(SaoRec(
-                type=[int(r[0]), int(r[1]), int(r[2])],
-                cls=[int(r[3]), int(r[4]), int(r[5])],
-                offsets=[[int(v) for v in r[6 + 4 * c:10 + 4 * c]]
-                         for c in range(3)],
-                merge_left=bool(r[18]), merge_up=bool(r[19])))
-        plan.sao = out
+        plan.sao = [SaoRec(type=r[0:3], cls=r[3:6],
+                           offsets=[r[6:10], r[10:14], r[14:18]],
+                           merge_left=bool(r[18]), merge_up=bool(r[19]))
+                    for r in self.sao.reshape(-1, 20).tolist()]
 
-    def replay_motion(self, plan, mctx) -> None:
+    def replay_motion(self, plan, mctx):
         """Walk the C parser's CU/PU event stream in z-order, re-deriving
         merge/AMVP candidates (which never affect the bitstream) with a
         replay availability grid that reproduces the parse-time neighborhood
-        (golden/mv.py motion_at semantics)."""
+        (golden/mv.py motion_at semantics), in ONE C call (replay.c) that
+        writes the MotionCtx grids.  -> its PU table (native/replay.py), or
+        None for a picture without events."""
         n_ev = int(self._ev.count)
         if n_ev == 0:
-            return
+            return None
         assert mctx is not None, "inter events need a MotionCtx"
-        from p265_tpu_torch.golden.mv import Motion, derive_amvp, derive_merge_list
-        from p265_tpu_torch.syntax.ctu import PuRec, wrap_mv
-        sps = self.sps
-        w4 = (sps.pic_width + 3) >> 2
-        h4 = (sps.pic_height + 3) >> 2
-        avail = np.zeros((h4, w4), bool)
-        tile_map4 = plan.tile_map4
-        slice_of_ctb = plan.slice_of_ctb
-        log2_ctb, wc = sps.log2_ctb_size, sps.pic_width_ctbs
-        cur = {"tile": 0, "slice": 0}
-
-        def avail_at(x: int, y: int) -> bool:
-            if x < 0 or y < 0 or x >= sps.pic_width or y >= sps.pic_height:
-                return False
-            if tile_map4[y >> 2, x >> 2] != cur["tile"]:
-                return False
-            addr = (y >> log2_ctb) * wc + (x >> log2_ctb)
-            if slice_of_ctb[addr] != cur["slice"]:
-                return False
-            return bool(avail[y >> 2, x >> 2])
-
-        mctx.avail = avail_at
-        mctx.intra_map = plan.intra_map
-        ev = self.ev[:n_ev]
-        pending = None  # (x0, y0, size) of the CU awaiting availability mark
-        for r in ev:
-            if r[0] == EV_CU:
-                if pending is not None:
-                    x0, y0, size = pending
-                    x1 = min(x0 + size, sps.pic_width)
-                    y1 = min(y0 + size, sps.pic_height)
-                    avail[y0 >> 2:(y1 + 3) >> 2, x0 >> 2:(x1 + 3) >> 2] = True
-                x0, y0, size = int(r[1]), int(r[2]), 1 << int(r[3])
-                pending = (x0, y0, size)
-                cur["tile"] = int(tile_map4[y0 >> 2, x0 >> 2])
-                cur["slice"] = int(
-                    slice_of_ctb[(y0 >> log2_ctb) * wc + (x0 >> log2_ctb)])
-                mctx.begin_cu()
-                continue
-            x, y, w, h = (int(r[1]), int(r[2]), int(r[3]), int(r[4]))
-            part, part_idx = PART_NAMES[int(r[5])], int(r[6])
-            if r[7]:  # merge
-                cx0, cy0, csize = pending
-                cu_log2 = csize.bit_length() - 1
-                cands = derive_merge_list(mctx, cx0, cy0, csize, x, y, w, h,
-                                          part, part_idx, int(r[18]))
-                motion = cands[int(r[8])].copy()
-            else:
-                idc = int(r[9])
-                motion = Motion()
-                for lx in (0, 1):
-                    if (idc == 0 and lx == 1) or (idc == 1 and lx == 0):
-                        continue
-                    ridx = int(r[10 + lx])
-                    mvd = (int(r[12 + 2 * lx]), int(r[13 + 2 * lx]))
-                    amvp = derive_amvp(mctx, x, y, w, h, lx, ridx)
-                    mvp = amvp[int(r[16 + lx])]
-                    motion.mv[lx] = (wrap_mv(mvp[0] + mvd[0]),
-                                     wrap_mv(mvp[1] + mvd[1]))
-                    motion.ref_idx[lx] = ridx
-                    motion.ref_poc[lx] = mctx.list_pocs[lx][ridx]
-                    # NOTE: lt stays False here, matching the Python parser
-                    # (_prediction_unit leaves Motion.lt default on the AMVP
-                    # path; the grids must agree bit-for-bit)
-            mctx.store_pu(x, y, w, h, motion)
-            plan.pus.append(PuRec(x, y, w, h, motion))
+        from p265_tpu_torch.native import replay
+        return replay.replay_motion(self.ev[:n_ev], plan, mctx)
 
     def tensor_plan(self, plan):
         """Vectorized TuBatch assembly (mirrors frame_plan.build_tensor_plan

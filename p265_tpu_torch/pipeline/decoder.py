@@ -130,6 +130,9 @@ class TorchDecoder(DecoderBase):
         self.stats.update({k + sfx: 0.0 for k in SPANS
                            for sfx in ("_s", "_cpu_s")})
         self.stats.update(queue_wait_s=0.0, h2d_bytes=0, h2d_copies=0)
+        # replay_pus (the parse thread's): the PUs the native motion replay
+        # derived
+        self.stats["replay_pus"] = 0
 
     def _finish_picture(self) -> None:
         """DecoderBase's, with the motion replay and the SAO records
@@ -142,6 +145,7 @@ class TorchDecoder(DecoderBase):
             try:
                 with span(self.stats, "finalize"):
                     ns.finalize(pic_st["plan"], pic_st["mctx"])
+                self.stats["replay_pus"] += getattr(ns, "replayed_pus", 0)
             except BaseException:
                 self._pic = None    # as DecoderBase drops it
                 raise

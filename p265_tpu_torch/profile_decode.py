@@ -15,7 +15,8 @@ After one warm-up pass it prints:
    wall time, device time (the sum of kernel and copy time), the device's
    idle share, the number of device operations, the top kernels, and the
    host-to-device copies with the device ms of each, in order (one a
-   dispatch: the h2d device ms of each dispatch).
+   dispatch: the h2d device ms of each dispatch), and the motion replay:
+   the PUs it derived (stats["replay_pus"]) and its `finalize` span.
 
 --json writes the stage table's sums over the dispatches of the stages
 that p265_tpu_torch.roofline counts as a whole, {stage: seconds a pass}
@@ -135,6 +136,10 @@ def _profile_window(data: bytes, dag: int) -> None:
     h2d = h2d_copies(prof)
     print(f"host-to-device copies: {len(h2d)}, {sum(h2d):.4f} device ms; "
           "each, in order: " + " ".join(f"{ms:.4f}" for ms in h2d))
+    st = dec.stats
+    print(f"motion replay (native, in C): {st['replay_pus']} PUs, finalize "
+          f"{st['finalize_s'] * 1e3:.2f} ms wall, "
+          f"{st['finalize_cpu_s'] * 1e3:.2f} ms thread CPU")
 
 
 def h2d_copies(prof) -> list:

@@ -5,10 +5,11 @@ p265_tpu (parse, DPB, golden decoder, tensor plans, tables, the test
 encoder), so that it
 imports nothing of p265_tpu.  Each copy must equal its original after the
 import rewrite `p265_tpu` -> `p265_tpu_torch`, apart from the deviations
-listed here and in a comment at the top of the copy (three code changes:
+listed here and in a comment at the top of the copy (four code changes:
 attach_pred_planes goes to the port's device MC, the native parse builds
-into the port's build directory, and a WPP row whose row above ended
-before its second CTU raises a ValueError; and three reworded comments);
+into the port's build directory, a WPP row whose row above ended before
+its second CTU raises a ValueError, and the native parse's motion replay
+runs in C; and four reworded comments);
 the two golden
 decoders must decode the same planes and the two tensor plans must be
 equal, field by field; the committed test streams must be the ones the JAX
@@ -56,8 +57,45 @@ COPIED = ("tables.py", "yuv.py",
 _HOST_MC = ("from p265_tpu_torch.golden.recon import build_inter_pred\n",
             "pred = build_inter_pred(plan, refs or {})\n")
 
+_PORT_BUILD = '''def _build(srcs=(_SRC, _SRC_CTU, _SRC_REPLAY), so=_SO) -> bool:
+    """Compile the last of `srcs` that exists (each includes the one
+    before it) into `so`, unless `so` is newer than all of them."""
+    try:
+        present = [p for p in srcs if os.path.exists(p)]
+        newest = max(os.path.getmtime(p) for p in present)
+        if not os.path.exists(so) or os.path.getmtime(so) < newest:
+            os.makedirs(os.path.dirname(so), exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            subprocess.run(
+                ["cc", "-O3", "-fPIC", "-shared", "-o", tmp, present[-1]],
+                check=True, capture_output=True)
+            os.replace(tmp, so)
+        return True
+    except Exception:
+        return False
+
+
+'''
+
+_PORT_REPLAY = '''    def replay_motion(self, plan, mctx):
+        """Walk the C parser's CU/PU event stream in z-order, re-deriving
+        merge/AMVP candidates (which never affect the bitstream) with a
+        replay availability grid that reproduces the parse-time neighborhood
+        (golden/mv.py motion_at semantics), in ONE C call (replay.c) that
+        writes the MotionCtx grids.  -> its PU table (native/replay.py), or
+        None for a picture without events."""
+        n_ev = int(self._ev.count)
+        if n_ev == 0:
+            return None
+        assert mctx is not None, "inter events need a MotionCtx"
+        from p265_tpu_torch.native import replay
+        return replay.replay_motion(self.ev[:n_ev], plan, mctx)
+
+'''
+
 # (old, new) text replacements that turn the rewritten original into the
-# copy; every other line is verbatim
+# copy, or (start, end, new): the original's text from the line `start`
+# up to the line `end` replaced; every other line is verbatim
 DEVIATIONS = {
     "plan/frame_plan.py": [
         ("                      device_mc: bool = False,\n", ""),
@@ -111,24 +149,51 @@ DEVIATIONS = {
     "native/__init__.py": [
         ('_SO = os.path.join(_DIR, "_cabac.so")',
          '_SO = os.path.join(os.path.dirname(_DIR), "build", "_cabac.so")'),
-        ("            subprocess.run(\n"
-         '                ["cc", "-O3", "-fPIC", "-shared", "-o", _SO, src],\n'
-         "                check=True, capture_output=True)\n",
-         "            os.makedirs(os.path.dirname(_SO), exist_ok=True)\n"
-         '            tmp = f"{_SO}.{os.getpid()}.tmp"\n'
-         "            subprocess.run(\n"
-         '                ["cc", "-O3", "-fPIC", "-shared", "-o", tmp, src],\n'
-         "                check=True, capture_output=True)\n"
-         "            os.replace(tmp, _SO)\n"),
+        ('_SRC_CTU = os.path.join(_DIR, "ctu.c")  # includes cabac.c '
+         '(single TU)\n',
+         '_SRC_CTU = os.path.join(_DIR, "ctu.c")  # includes cabac.c '
+         '(single TU)\n'
+         '_SRC_REPLAY = os.path.join(_DIR, "replay.c")  # includes ctu.c\n'),
+        # the library is built from replay.c, under a temporary name
+        # renamed into place; sources and library are arguments
+        ("def _build() -> bool:\n", "def _load():\n", _PORT_BUILD),
+    ],
+    # the motion replay runs in C (native/replay.py, replay.c)
+    "native/parse.py": [
+        ("derivation never affects the bitstream, so replay_motion() re-runs\n"
+         "golden/mv.py's merge/AMVP derivation over the event stream "
+         "afterwards,\n",
+         "derivation never affects the bitstream, so replay_motion() re-runs "
+         "the\n"
+         "merge/AMVP derivation over the event stream afterwards, in C "
+         "(replay.c,\n"
+         "golden/mv.py's derivation mirrored bit for bit, one call a picture),"
+         "\n"),
+        ("        self.replay_motion(plan, mctx)\n",
+         "        table = self.replay_motion(plan, mctx)\n"
+         "        if table is not None:\n"
+         "            from p265_tpu_torch.native.replay import pu_records\n"
+         "            self.replayed_pus = len(table)\n"
+         "            plan.pus.extend(pu_records(table))\n"),
+        # the SAO records through one tolist()
+        ("        rec = self.sao.reshape(-1, 20)\n",
+         "\n    def replay_motion(self, plan, mctx) -> None:\n",
+         "        plan.sao = [SaoRec(type=r[0:3], cls=r[3:6],\n"
+         "                           offsets=[r[6:10], r[10:14], r[14:18]],\n"
+         "                           merge_left=bool(r[18]), "
+         "merge_up=bool(r[19]))\n"
+         "                    for r in self.sao.reshape(-1, 20).tolist()]\n"),
+        ("    def replay_motion(self, plan, mctx) -> None:\n",
+         "    def tensor_plan(self, plan):\n", _PORT_REPLAY),
     ],
 }
 
-# (first, last, n): lines first..last of the original (1-based) are
-# replaced by n lines of the copy: comments reworded, no code
+# (first, last, n), in order: lines first..last of the original (1-based)
+# are replaced by n lines of the copy: comments reworded, no code
 LINE_DEVIATIONS = {
-    "tables.py": (3, 12, 7),
-    "native/cabac.c": (7, 7, 1),
-    "native/ctu.c": (256, 256, 1),
+    "tables.py": ((3, 12, 7),),
+    "native/cabac.c": ((7, 7, 1),),
+    "native/ctu.c": ((127, 129, 4), (256, 256, 1)),
 }
 
 _IMPORT = re.compile(r"^(\s*)(from|import) p265_tpu(?=[.\s])", re.M)
@@ -144,9 +209,17 @@ def test_copy_is_verbatim_but_for_listed_deviations(rel):
     want = _read(ROOT, "p265_tpu", rel)
     if rel.endswith(".py"):
         want = _IMPORT.sub(r"\1\2 p265_tpu_torch", want)
-    for old, new in DEVIATIONS.get(rel, ()):
-        assert want.count(old) == 1, (rel, old)
-        want = want.replace(old, new)
+    for dev in DEVIATIONS.get(rel, ()):
+        if len(dev) == 3:
+            start, end, new = dev
+            assert want.count(start) == 1 and want.count(end) == 1, dev
+            a, b = want.index(start), want.index(end)
+            assert a < b, dev
+            want = want[:a] + new + want[b:]
+        else:
+            old, new = dev
+            assert want.count(old) == 1, (rel, old)
+            want = want.replace(old, new)
     got = _read(ROOT, "p265_tpu_torch", rel)
     lines = got.splitlines(keepends=True)
     mark = "//" if rel.endswith(".c") else "#"
@@ -159,10 +232,13 @@ def test_copy_is_verbatim_but_for_listed_deviations(rel):
         assert not head, rel
     want = want.splitlines(keepends=True)
     if rel in LINE_DEVIATIONS:
-        first, last, n = LINE_DEVIATIONS[rel]
-        assert body[:first - 1] == want[:first - 1]
-        assert body[first - 1 + n:] == want[last:]
-        assert body[first - 1:first - 1 + n] != want[first - 1:last]
+        i = j = 0       # the next line of the original, of the copy
+        for first, last, n in LINE_DEVIATIONS[rel]:
+            k = first - 1 - i
+            assert body[j:j + k] == want[i:first - 1]
+            assert body[j + k:j + k + n] != want[first - 1:last]
+            i, j = last, j + k + n
+        assert body[j:] == want[i:]
     else:
         assert body == want
     assert not re.search(r"^\s*(from|import) p265_tpu(\.|\s|$)", got, re.M)
