@@ -45,8 +45,10 @@ def frame_digests(frames) -> list:
     return out
 
 
-def load_expected(item: str, expected_dir: str = EXPECTED_DIR) -> dict:
-    with open(os.path.join(expected_dir, item + ".json")) as f:
+def load_expected(item: str) -> dict:
+    """<EXPECTED_DIR>/<item>.json; EXPECTED_DIR is read at each call, so a
+    test can point it elsewhere."""
+    with open(os.path.join(EXPECTED_DIR, item + ".json")) as f:
         return json.load(f)
 
 

@@ -1,7 +1,22 @@
 """Find a cell's parts by name: the workload in BENCHMARK.json, its
 configuration (configs/<name>.json), its traffic mix (traffic/<name>.json)
-and its per-layer metrics (metrics/<name>.py).  Adding a cell takes only
-new files and a `workloads` entry."""
+and its per-layer metrics (metrics/<name>.py).
+
+Adding a cell takes new files, and in BENCHMARK.json new entries and its
+name added to lists that are there:
+- the configuration, configs/<config>.json, where the cell brings a new one;
+- the traffic mix, traffic/<traffic>.json;
+- one sum file per stream new to the benchmark, sums/<stream>.sha256
+  (harness/streams.py);
+- per pool item new to the benchmark, the reference's digests,
+  expected/<item>.json (tools/make_expected.py), and the frozen work,
+  work/<item>.json (tools/freeze_work.py);
+- one reader per new per-layer metric, metrics/<name>.py;
+- the `workloads` entry, and the `configs` and metric entries it adds;
+- the cell's name in the `workloads` list of each metric already there
+  that the cell reports (_applies: a metric with a `workloads` key applies
+  to the cells it lists, one without it to every cell).
+"""
 from __future__ import annotations
 
 import importlib.util

@@ -1,43 +1,63 @@
-"""The pool's inputs: committed Annex-B streams, checked against the
-benchmark's own table of SHA-256 sums, and the segments cut from them.
+"""The pool's inputs: committed Annex-B streams, each checked against the
+benchmark's own SHA-256 sum of it, and the segments cut from them.
 
 A pool item is a stream name (the whole stream is one segment) or
 `<stream>.<cut>`, a segment cut from that stream by CUTS[cut].  Streams
-are read from the program's committed data directory and never encoded:
-a missing stream, or one whose bytes do not match `streams.sha256` here,
-raises.
+are read from the program's committed data directory and never encoded.
+The sum of stream `<stream>` is the one line of `sums/<stream>.sha256`
+(`sha256sum` format: `<hex>  <stream>.265`), so adding a stream to the
+pool takes one new file there.  A stream with no sum file, a sum file
+that is not one such line naming its own stream, a missing stream, or
+one whose bytes do not match its sum, raises.
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_DIR = os.path.dirname(BENCH_DIR)
 DATA_DIR = os.path.join(REPO_DIR, "p265_tpu_torch", "data")
-SUMS = os.path.join(BENCH_DIR, "streams.sha256")
+SUMS_DIR = os.path.join(BENCH_DIR, "sums")
+SUM_SUFFIX = ".sha256"
 
 NAL_VPS, NAL_SPS, NAL_PPS = 32, 33, 34
 PARAMETER_SETS = (NAL_VPS, NAL_SPS, NAL_PPS)
 
 
-def sums(path: str = SUMS) -> dict:
-    """{stream: sha256 hex} of the sums file (`sha256sum` format)."""
-    out = {}
+def read_sum(name: str) -> str:
+    """The sha256 hex of stream `name`: the one line of
+    `<SUMS_DIR>/<name>.sha256`, checked to name that stream.  SUMS_DIR is
+    read at each call, so a test can point it elsewhere."""
+    path = os.path.join(SUMS_DIR, name + SUM_SUFFIX)
+    if not os.path.exists(path):
+        raise ValueError(f"stream {name!r} has no sum: {path} is not there")
     with open(path) as f:
-        for line in f:
-            if line.strip():
-                digest, name = line.split()
-                out[name.removesuffix(".265")] = digest
-    return out
+        lines = f.read().splitlines()
+    if len(lines) != 1:
+        raise ValueError(f"{path}: {len(lines)} lines, not one")
+    digest, *named = lines[0].split() or [""]
+    if named != [name + ".265"]:
+        raise ValueError(f"{path}: the line names {' '.join(named)!r}, "
+                         f"not {name + '.265'!r}")
+    if not re.fullmatch("[0-9a-f]{64}", digest):
+        raise ValueError(f"{path}: the digest {digest!r} is not 64 "
+                         f"lowercase hex digits")
+    return digest
 
 
-def read_stream(name: str, data_dir: str = DATA_DIR,
-                sums_path: str = SUMS) -> bytes:
-    """The committed stream `name`, its sha256 checked."""
-    want = sums(sums_path).get(name)
-    if want is None:
-        raise ValueError(f"stream {name!r} has no sum in {sums_path}")
+def sums() -> dict:
+    """{stream: sha256 hex} over every sum file of SUMS_DIR."""
+    names = [f.removesuffix(SUM_SUFFIX) for f in sorted(os.listdir(SUMS_DIR))
+             if f.endswith(SUM_SUFFIX)]
+    return {name: read_sum(name) for name in names}
+
+
+def read_stream(name: str, data_dir: str = DATA_DIR) -> bytes:
+    """The committed stream `name`, its sha256 checked against its sum
+    file."""
+    want = read_sum(name)
     path = os.path.join(data_dir, name + ".265")
     if not os.path.exists(path):
         raise FileNotFoundError(f"stream {name!r} is not committed at {path}")
@@ -105,7 +125,8 @@ CUTS = {"idr": first_irap_access_unit}
 
 
 def segment_bytes(item: str, **kw) -> bytes:
-    """The bytes of pool item `item`: a stream, or `<stream>.<cut>`."""
+    """The bytes of pool item `item`: a stream, or `<stream>.<cut>`.
+    kw: read_stream's `data_dir`."""
     stream, _, cut = item.partition(".")
     data = read_stream(stream, **kw)
     if not cut:

@@ -2,6 +2,7 @@
 fault must turn `correct` false, the sound path and the control must read
 as they should.  The look for a card is skipped; the rest of a run
 (set-up, window, comparison, result) is the benchmark's own."""
+import hashlib
 import json
 import os
 import shutil
@@ -29,6 +30,49 @@ def test_a_sound_run_is_correct_and_its_line_ends_with_the_check():
     assert all(c["value"] == 0 == c["limit"] for c in out["check"].values())
     assert set(out["metrics"]) == {"fps", "setup_s"}
     assert out["device"]["count"] == 1
+
+
+def _files(root: str) -> dict:
+    """{path: (size, mtime)} of the files under root, bytecode caches and
+    the build caches left out."""
+    out = {}
+    for d, dirs, files in os.walk(root):
+        dirs[:] = [x for x in dirs if x not in ("__pycache__", ".cache")]
+        for f in files:
+            st = os.stat(os.path.join(d, f))
+            out[os.path.join(d, f)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def test_a_cell_on_a_new_stream_takes_new_files_only(tmp_path, monkeypatch):
+    """s416_ldp4, which no cell uses, enters a pool by new files alone: its
+    sum file, its reference digests (tools/make_expected.py) and a traffic
+    file.  The cell runs to `correct`; no file of decode_bench/ is
+    written."""
+    from decode_bench.harness import check, spec, streams
+    from decode_bench.tools.make_expected import write
+    before = _files(BENCH_DIR)
+    stream = "s416_ldp4"
+    for d in ("sums", "expected", "traffic"):
+        (tmp_path / d).mkdir()
+    with open(os.path.join(streams.DATA_DIR, "SHA256SUMS")) as f:
+        line = next(x for x in f if x.split()[1] == stream + ".265")
+    (tmp_path / "sums" / (stream + ".sha256")).write_text(line)
+    (tmp_path / "traffic" / "s416_segments.json").write_text(json.dumps(
+        dict(pool={stream: 1}, order="permutation_repeated", warm=[stream])))
+    monkeypatch.setattr(streams, "SUMS_DIR", str(tmp_path / "sums"))
+    monkeypatch.setattr(check, "EXPECTED_DIR", str(tmp_path / "expected"))
+    write(stream, str(tmp_path / "expected"))
+    rec = check.load_expected(stream)
+    assert len(rec["pictures"]) == 4
+    assert rec["segment_sha256"] == hashlib.sha256(
+        streams.segment_bytes(stream)).hexdigest() == line.split()[0]
+    out = _run(tiny_cell(**spec.traffic("s416_segments",
+                                        bench_dir=str(tmp_path))))
+    assert out["correct"] and out["attempted"] > 0 and out["failed"] == 0
+    assert out["check"]["planes_wrong"]["value"] == 0
+    assert out["check"]["pictures_missing"]["value"] == 0
+    assert _files(BENCH_DIR) == before
 
 
 def test_a_traced_cpu_run_reads_the_programs_stats():

@@ -2,7 +2,8 @@
 
     python3 decode_bench/tools/make_expected.py ITEM [ITEM ...] [--jobs N]
 
-An item is a stream of streams.sha256 or `<stream>.<cut>` (harness/streams.py).
+An item is a stream with a file under `sums/` or `<stream>.<cut>`
+(harness/streams.py).
 Each is decoded by the benchmark's plain reference (`reference/`, pure
 Python: about 15 s a 1080p picture on one CPU core) and its pictures'
 plane digests are written in output order.  Runs on the CPU; imports
