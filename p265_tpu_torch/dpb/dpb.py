@@ -1,3 +1,7 @@
+# Copy of p265_tpu/dpb/dpb.py.  Deviation: the bumping for a full DPB
+# runs after the current picture's RPS and before it is stored, without
+# counting it (spec C.5.2.2); after it is stored, only the reorder limit
+# bumps (C.5.2.3).
 """Decoded picture buffer: POC, RPS application, reference lists, bumping
 (spec 8.3.1-8.3.4, C.5).
 
@@ -102,6 +106,7 @@ class DPB:
             else:
                 p.is_reference = False
         self._flush_unneeded()
+        self._bump(full=True)
 
     def _lt_match(self, sh: SliceHeader, poc: int, used_only: bool
                   ) -> list[Picture]:
@@ -169,13 +174,18 @@ class DPB:
     # -- insertion / output (C.5) -------------------------------------------
     def insert(self, pic: Picture) -> None:
         self.pics.append(pic)
-        self._bump()
+        self._bump(full=False)
 
-    def _bump(self) -> None:
+    def _bump(self, full: bool) -> None:
+        """Output pictures while more than num_reorder_pics wait for output
+        or, with `full` (C.5.2.2: after the current picture's RPS, before it
+        is stored, so it is not counted), while the DPB is full.  After the
+        current picture is stored (C.5.2.3) only the first condition holds."""
         while True:
             pending = [p for p in self.pics if p.needed_for_output]
             over_reorder = len(pending) > self.sps.num_reorder_pics
-            over_size = len(self.pics) >= self.sps.max_dec_pic_buffering
+            over_size = full and (
+                len(self.pics) >= self.sps.max_dec_pic_buffering)
             if pending and (over_reorder or over_size):
                 first = min(pending, key=lambda p: p.poc)
                 self.outputs.append(first)

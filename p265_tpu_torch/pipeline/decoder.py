@@ -28,10 +28,20 @@ from p265_tpu_torch.spans import span
 
 # the spans of TorchDecoder.stats (spans.py), by the one thread that
 # writes each: the caller's (the parse thread) finalize and tensor_plan;
-# the recon worker mc_pack, pack, upload and dispatch; the fetch (the
-# fetch worker in PipelinedTorchDecoder, the recon worker here) fetch
-SPANS = ("finalize", "tensor_plan", "mc_pack", "pack", "upload", "dispatch",
-         "fetch")
+# the recon worker mc_pack, ref_stack (inside mc_pack), pack, upload and
+# dispatch; the fetch (the fetch worker in PipelinedTorchDecoder, the
+# recon worker here) fetch
+SPANS = ("finalize", "tensor_plan", "mc_pack", "ref_stack", "pack", "upload",
+         "dispatch", "fetch")
+# the counters, by the one thread that writes each: the parse thread's
+# replay_pus and replay_bi_pus (the PUs the native motion replay derived,
+# and those with both ref_idx >= 0) and tmvp_pictures (pictures whose
+# slices have TMVP on); the recon worker's mc_blocks and mc_bi_blocks (the
+# MC blocks mc_arrays_padded packed, and those with a second list),
+# ref_pictures and ref_stack_bytes (the reference pictures stacked for
+# K2, and the stacks' bytes)
+COUNTERS = ("replay_pus", "replay_bi_pus", "tmvp_pictures", "mc_blocks",
+            "mc_bi_blocks", "ref_pictures", "ref_stack_bytes")
 
 
 def slabs_from_numpy(planes, device) -> list:
@@ -130,9 +140,7 @@ class TorchDecoder(DecoderBase):
         self.stats.update({k + sfx: 0.0 for k in SPANS
                            for sfx in ("_s", "_cpu_s")})
         self.stats.update(queue_wait_s=0.0, h2d_bytes=0, h2d_copies=0)
-        # replay_pus (the parse thread's): the PUs the native motion replay
-        # derived
-        self.stats["replay_pus"] = 0
+        self.stats.update({k: 0 for k in COUNTERS})
 
     def _finish_picture(self) -> None:
         """DecoderBase's, with the motion replay and the SAO records
@@ -146,9 +154,14 @@ class TorchDecoder(DecoderBase):
                 with span(self.stats, "finalize"):
                     ns.finalize(pic_st["plan"], pic_st["mctx"])
                 self.stats["replay_pus"] += getattr(ns, "replayed_pus", 0)
+                self.stats["replay_bi_pus"] += getattr(ns, "replayed_bi_pus",
+                                                       0)
             except BaseException:
                 self._pic = None    # as DecoderBase drops it
                 raise
+        if (pic_st is not None and pic_st["ctbs"] == pic_st["sps"].num_ctbs
+                and pic_st["plan"].sh.temporal_mvp_enabled):
+            self.stats["tmvp_pictures"] += 1
         super()._finish_picture()
 
     def _build_tplan(self, plan):
@@ -213,17 +226,27 @@ class TorchDecoder(DecoderBase):
         plans = [t["plan"] for t in tasks]
         tplans = [t["tplan"] for t in tasks]
         mc = refs = None
+        st = self.stats
         if any(p.pus for p in plans):
             mc, refs = [], []
-            with span(self.stats, "mc_pack"):
+            with span(st, "mc_pack"):
                 for t, plan in zip(tasks, plans):
                     poc_list = sorted(t["refs"])
                     mc.append(mc_arrays_padded(
                         plan, {p: i for i, p in enumerate(poc_list)},
                         mc_block_counts(plan)))
-                    refs.append(ref_stacks(
-                        {p: r.planes for p, r in t["refs"].items()},
-                        poc_list, self.device))
+                    with span(st, "ref_stack"):
+                        refs.append(ref_stacks(
+                            {p: r.planes for p, r in t["refs"].items()},
+                            poc_list, self.device))
+            # counted outside the span, so that mc_pack_s times the pack
+            blocks = [d["has1"] for arrays in mc for grp in arrays.values()
+                      for d in grp.values()]
+            st["mc_blocks"] += sum(len(b) for b in blocks)
+            st["mc_bi_blocks"] += sum(int(np.count_nonzero(b))
+                                      for b in blocks)
+            st["ref_pictures"] += sum(len(t["refs"]) for t in tasks)
+            st["ref_stack_bytes"] += sum(s.nbytes for r in refs for s in r)
         batch = build_batch(tplans, plans, mc=mc, stats=self.stats)
         pl, pc, fl, fc = decode_batch_planes(batch, refs, self.device,
                                              stats=self.stats)

@@ -15,8 +15,12 @@ After one warm-up pass it prints:
    wall time, device time (the sum of kernel and copy time), the device's
    idle share, the number of device operations, the top kernels, and the
    host-to-device copies with the device ms of each, in order (one a
-   dispatch: the h2d device ms of each dispatch), and the motion replay:
-   the PUs it derived (stats["replay_pus"]) and its `finalize` span.
+   dispatch: the h2d device ms of each dispatch), the motion replay: the
+   PUs it derived (stats["replay_pus"]), the bi-predicted ones
+   (replay_bi_pus) and its `finalize` span, the pictures with TMVP on
+   (tmvp_pictures), and the MC pack: its blocks (mc_blocks, mc_bi_blocks),
+   the reference pictures it stacked (ref_pictures, ref_stack_bytes) and
+   its `mc_pack` and `ref_stack` spans.
 
 --json writes the stage table's sums over the dispatches of the stages
 that p265_tpu_torch.roofline counts as a whole, {stage: seconds a pass}
@@ -83,7 +87,7 @@ def _stage_table(data: bytes, dag: int) -> dict:
         t0 = time.perf_counter()
         orig_run(self, tasks)
         rows.append(("+".join(str(t["plan"].poc) for t in tasks),
-                     bool(tasks[0]["plan"].pus), steps[-1],
+                     "BPI"[tasks[0]["plan"].sh.slice_type], steps[-1],
                      time.perf_counter() - t0 + acc["tensor plan"],
                      dict(acc), self.stats["h2d_copies"] - h2d[0],
                      self.stats["h2d_bytes"] - h2d[1]))
@@ -101,9 +105,9 @@ def _stage_table(data: bytes, dag: int) -> dict:
           "after every stage (s):")
     print("pocs kind steps total " + " | ".join(labels)
           + " | rest | h2d copies | h2d bytes")
-    for poc, inter, n_steps, total, a, copies, nbytes in rows:
+    for poc, kind, n_steps, total, a, copies, nbytes in rows:
         parts = [a.get(lb, 0.0) for lb in labels]
-        print(f"{poc} {'P' if inter else 'I'} {n_steps} {total:.4f} "
+        print(f"{poc} {kind} {n_steps} {total:.4f} "
               + " | ".join(f"{p:.4f}" for p in parts)
               + f" | {total - sum(parts):.4f} | {copies} | {nbytes}")
     return {st: sum(r[4].get(label, 0.0) for r in rows)
@@ -137,9 +141,16 @@ def _profile_window(data: bytes, dag: int) -> None:
     print(f"host-to-device copies: {len(h2d)}, {sum(h2d):.4f} device ms; "
           "each, in order: " + " ".join(f"{ms:.4f}" for ms in h2d))
     st = dec.stats
-    print(f"motion replay (native, in C): {st['replay_pus']} PUs, finalize "
+    print(f"motion replay (native, in C): {st['replay_pus']} PUs "
+          f"({st['replay_bi_pus']} bi-predicted), finalize "
           f"{st['finalize_s'] * 1e3:.2f} ms wall, "
-          f"{st['finalize_cpu_s'] * 1e3:.2f} ms thread CPU")
+          f"{st['finalize_cpu_s'] * 1e3:.2f} ms thread CPU; "
+          f"{st['tmvp_pictures']} pictures with TMVP")
+    print(f"MC pack: {st['mc_blocks']} blocks ({st['mc_bi_blocks']} with a "
+          f"second list), {st['ref_pictures']} reference pictures stacked "
+          f"({st['ref_stack_bytes']} bytes); mc_pack "
+          f"{st['mc_pack_s'] * 1e3:.2f} ms wall, ref_stack "
+          f"{st['ref_stack_s'] * 1e3:.2f} ms wall")
 
 
 def h2d_copies(prof) -> list:

@@ -1,3 +1,8 @@
+# Copy of p265_tpu/testgen/encoder.py.  Deviation: the inter CU planning
+# takes its reference index, its 2-PU partition and its sub-PU search from
+# hooks (_ref_of, _pick_part, _search_pu), and its AMVP search and PU plan
+# from two methods (_search, _plan_amvp_pu); the defaults write the bytes
+# the original writes.
 """Minimal conformant HEVC encoder (testgen): IDR intra + low-delay P GOPs.
 
 Purpose (SURVEY.md 4.2): no conformance streams or reference encoders exist in
@@ -703,6 +708,86 @@ class Encoder:
                         improved = True
         return best_mv, best_cost
 
+    # -- hooks of the inter CU planning: the defaults code ref_idx 0, the
+    # symmetric 2-PU partitions and uni-L0 sub-PUs (testgen/ctc.py overrides
+    # them for the CTC's random access)
+    def _ref_of(self, lx: int) -> int:
+        """The reference index an AMVP search of list `lx` uses."""
+        return 0
+
+    def _pick_part(self, size: int) -> str:
+        """The partition of an AMVP CU that takes 2 PUs."""
+        return "2NxN" if self.rng.random() < 0.5 else "Nx2N"
+
+    def _search_pu(self, x, y, w, h, is_b):
+        """The motion of one PU of a 2-PU partition, as `_search`."""
+        return self._search(x, y, w, h, False)
+
+    def _search(self, x, y, w, h, is_b):
+        """Motion of one AMVP PU: uni L0, uni L1 or bi (not for 8x4 and 4x8),
+        the cheapest by SAD plus a crude bit cost -> (inter_pred_idc,
+        (mv0, mv1), (ref0, ref1), cost)."""
+        refs = (self._ref_of(0), self._ref_of(1) if is_b else 0)
+        a = derive_amvp(self.mctx, x, y, w, h, 0, refs[0])
+        mv0, c0 = self._motion_search(x, y, w, h, 0, refs[0],
+                                      [a[0], a[1], (0, 0)])
+        options = [(0, c0 + 20, (mv0, (0, 0)))]  # crude bit-cost penalty
+        if is_b:
+            a = derive_amvp(self.mctx, x, y, w, h, 1, refs[1])
+            mv1, c1 = self._motion_search(x, y, w, h, 1, refs[1],
+                                          [a[0], a[1], (0, 0)])
+            options.append((1, c1 + 20, ((0, 0), mv1)))
+            if w + h != 12:
+                # bi-prediction cost (true 14-bit intermediate average)
+                lp = self.mctx.list_pocs
+                bi = combine_bi(
+                    mc_luma(self.ref_by_poc[lp[0][refs[0]]].planes[0],
+                            x, y, w, h, *mv0),
+                    mc_luma(self.ref_by_poc[lp[1][refs[1]]].planes[0],
+                            x, y, w, h, *mv1))
+                orig = self.orig[0][y:y + h, x:x + w]
+                cost = int(np.abs(
+                    orig - bi[:orig.shape[0], :orig.shape[1]]).sum()) + 40
+                options.append((2, cost, (mv0, mv1)))
+        idc, cost, mvs = min(options, key=lambda o: o[1])
+        return idc, mvs, refs, cost
+
+    def _plan_amvp_pu(self, px, py, w, h, idc, mvs, refs, cands) -> Motion:
+        """The PU's pu_plan: a merge candidate where one carries exactly the
+        searched motion, else AMVP with the nearer predictor."""
+        lists = [lx for lx in (0, 1) if idc in (2, lx)]
+        want = Motion()
+        for lx in lists:
+            want.mv[lx] = mvs[lx]
+            want.ref_idx[lx] = refs[lx]
+            want.ref_poc[lx] = self.mctx.list_pocs[lx][refs[lx]]
+        for ci, mc in enumerate(cands):
+            if mc.same_motion(want):
+                self.planner.pu_plans[(px, py)] = {
+                    "merge": True, "merge_idx": ci}
+                return mc.copy()
+        m = Motion()
+        mvds, mvps = [(0, 0), (0, 0)], [0, 0]
+        for lx in lists:
+            a = derive_amvp(self.mctx, px, py, w, h, lx, refs[lx])
+            mv = mvs[lx]
+            d0 = abs(mv[0] - a[0][0]) + abs(mv[1] - a[0][1])
+            d1 = abs(mv[0] - a[1][0]) + abs(mv[1] - a[1][1])
+            mvp_flag = 1 if d1 < d0 else 0
+            mvd = (mv[0] - a[mvp_flag][0], mv[1] - a[mvp_flag][1])
+            m.mv[lx] = (wrap_mv(a[mvp_flag][0] + mvd[0]),
+                        wrap_mv(a[mvp_flag][1] + mvd[1]))
+            m.ref_idx[lx] = refs[lx]
+            m.ref_poc[lx] = self.mctx.list_pocs[lx][refs[lx]]
+            mvds[lx] = mvd
+            mvps[lx] = mvp_flag
+        self.planner.pu_plans[(px, py)] = {
+            "merge": False, "inter_dir": idc,
+            "ref_idx": [refs[0] if 0 in lists else 0,
+                        refs[1] if 1 in lists else 0],
+            "mvd": mvds, "mvp_flag": mvps}
+        return m
+
     def _plan_pb_cu(self, x0, y0, log2_size):
         sps, sh = self.sps, self.sh
         size = 1 << log2_size
@@ -722,33 +807,14 @@ class Encoder:
 
         # --- candidate B: 2Nx2N AMVP ---
         is_b = self.slice_type == SLICE_B and len(self.mctx.list_pocs[1]) > 0
-        amvp0 = derive_amvp(self.mctx, x0, y0, size, size, 0, 0)
-        mv0, me_cost0 = self._motion_search(
-            x0, y0, size, size, 0, 0, [amvp0[0], amvp0[1], (0, 0)])
-        amvp_dir, amvp_mvs = 0, (mv0, (0, 0))
-        me_cost = me_cost0 + 20  # crude bit-cost penalty vs merge
-        if is_b:
-            amvp1 = derive_amvp(self.mctx, x0, y0, size, size, 1, 0)
-            mv1, me_cost1 = self._motion_search(
-                x0, y0, size, size, 1, 0, [amvp1[0], amvp1[1], (0, 0)])
-            # bi-prediction cost (true 14-bit intermediate average)
-            ref0 = self.ref_by_poc[self.mctx.list_pocs[0][0]].planes[0]
-            ref1 = self.ref_by_poc[self.mctx.list_pocs[1][0]].planes[0]
-            bi = combine_bi(mc_luma(ref0, x0, y0, size, size, *mv0),
-                            mc_luma(ref1, x0, y0, size, size, *mv1))
-            bi_cost = int(np.abs(
-                orig_y - bi[:orig_y.shape[0], :orig_y.shape[1]]).sum()) + 40
-            options = ((0, me_cost0 + 20, (mv0, (0, 0))),
-                       (1, me_cost1 + 20, ((0, 0), mv1)),
-                       (2, bi_cost, (mv0, mv1)))
-            amvp_dir, me_cost, amvp_mvs = min(options, key=lambda o: o[1])
+        amvp = self._search(x0, y0, size, size, is_b)
 
         # --- candidate C: intra ---
         cand_modes = sorted({0, 1, 10, 26, int(self.rng.integers(2, 35))})
         best_imode, icost = self._best_mode(0, x0, y0, size, cand_modes)
         icost += 30
 
-        choice = min((("merge", best_mcost), ("amvp", me_cost),
+        choice = min((("merge", best_mcost), ("amvp", amvp[3]),
                       ("intra", icost)), key=lambda kv: kv[1])[0]
         if self.rng.random() < 0.06:
             choice = "intra"  # coverage: occasional intra in P/B
@@ -761,7 +827,7 @@ class Encoder:
         # occasionally exercise 2-PU partitions with AMVP per PU
         part = "2Nx2N"
         if choice == "amvp" and size <= 32 and self.rng.random() < 0.3:
-            part = "2NxN" if self.rng.random() < 0.5 else "Nx2N"
+            part = self._pick_part(size)
 
         self.planner.pred_modes[(x0, y0)] = False
         self.planner.inter_parts[(x0, y0)] = part
@@ -775,51 +841,10 @@ class Encoder:
             else:
                 cands = derive_merge_list(self.mctx, x0, y0, size, px, py,
                                           w, h, part, i, sh.max_num_merge_cand)
-                if part == "2Nx2N":
-                    idc, mvs = amvp_dir, amvp_mvs
-                else:
-                    # sub-partitions: re-search per PU, uni L0 for simplicity
-                    a = derive_amvp(self.mctx, px, py, w, h, 0, 0)
-                    mv, _ = self._motion_search(px, py, w, h, 0, 0,
-                                                [a[0], a[1], (0, 0)])
-                    idc, mvs = 0, (mv, (0, 0))
-                # merge shortcut if a candidate matches exactly
-                want = Motion()
-                for lx in range(2):
-                    if (idc == 2) or (idc == lx):
-                        want.mv[lx] = mvs[lx]
-                        want.ref_idx[lx] = 0
-                        want.ref_poc[lx] = self.mctx.list_pocs[lx][0]
-                use_merge = False
-                for ci, mc in enumerate(cands):
-                    if mc.same_motion(want):
-                        use_merge = True
-                        self.planner.pu_plans[(px, py)] = {
-                            "merge": True, "merge_idx": ci}
-                        m = mc.copy()
-                        break
-                if not use_merge:
-                    m = Motion()
-                    mvds = [(0, 0), (0, 0)]
-                    mvps = [0, 0]
-                    for lx in range(2):
-                        if not ((idc == 2) or (idc == lx)):
-                            continue
-                        a = derive_amvp(self.mctx, px, py, w, h, lx, 0)
-                        mv = mvs[lx]
-                        d0 = abs(mv[0] - a[0][0]) + abs(mv[1] - a[0][1])
-                        d1 = abs(mv[0] - a[1][0]) + abs(mv[1] - a[1][1])
-                        mvp_flag = 1 if d1 < d0 else 0
-                        mvd = (mv[0] - a[mvp_flag][0], mv[1] - a[mvp_flag][1])
-                        m.mv[lx] = (wrap_mv(a[mvp_flag][0] + mvd[0]),
-                                    wrap_mv(a[mvp_flag][1] + mvd[1]))
-                        m.ref_idx[lx] = 0
-                        m.ref_poc[lx] = self.mctx.list_pocs[lx][0]
-                        mvds[lx] = mvd
-                        mvps[lx] = mvp_flag
-                    self.planner.pu_plans[(px, py)] = {
-                        "merge": False, "inter_dir": idc, "ref_idx": [0, 0],
-                        "mvd": mvds, "mvp_flag": mvps}
+                idc, mvs, refs, _ = (
+                    amvp if part == "2Nx2N"
+                    else self._search_pu(px, py, w, h, is_b))
+                m = self._plan_amvp_pu(px, py, w, h, idc, mvs, refs, cands)
             self.mctx.store_pu(px, py, w, h, m)
             motions.append(m)
             self.plan.pus.append(PuRec(px, py, w, h, m))

@@ -2,9 +2,11 @@
 
 The counterpart of `tools/make_streams.py`: the same names, sizes, QPs,
 seeds and PPS flags in `GENERATORS`, so both write the same bytes for a
-name.  `CONFIG5` holds the streams of BASELINE configuration 5 (4K
-random-access multi-stream decode): four one-segment RA GOPs of 5
-pictures (IDR, P at POC 4, B at 2, 1, 3) from four seeds.
+name; the names of `PORT_ONLY` follow them, streams only the port's
+encoder makes (`s1080_ra17`: the CTC's random access, testgen/ctc.py).
+`CONFIG5` holds the streams of BASELINE configuration 5 (4K random-access
+multi-stream decode): four one-segment RA GOPs of 5 pictures (IDR, P at
+POC 4, B at 2, 1, 3) from four seeds.
 `get_stream(name)` serves both tables: it reads
 `p265_tpu_torch/data/<name>.265` when it is committed (checked against `data/SHA256SUMS`); otherwise it encodes the
 stream once into a cache directory under the system's temporary directory
@@ -67,6 +69,26 @@ def _gop(w, h, n, structure, seed=5, qp=32):
     return stream
 
 
+def _ra_ctc(w, h, n, seed=5, qp=32, jobs=1):
+    """The CTC's random access (testgen/ctc.py "RA-CTC"): an IDR, then
+    GOPs of 8 hierarchical B pictures with their QP offsets, two active
+    references a list, AMP and TMVP; `jobs` worker processes (the bytes do
+    not depend on it)."""
+    from p265_tpu_torch.hls.params import PPS
+    from p265_tpu_torch.testgen.ctc import N_REF, CtcEncoder, ra_ctc_sps
+    from p265_tpu_torch.testgen.encoder import make_moving_sequence
+    sps = ra_ctc_sps(w, h)
+    pps = PPS(init_qp=qp, sign_data_hiding=True,
+              num_ref_idx_l0_default=N_REF[0],
+              num_ref_idx_l1_default=N_REF[1])
+    frames = make_moving_sequence(w, h, n, seed=seed)
+    stream, _ = CtcEncoder(sps, pps, qp=qp, seed=seed).encode_sequence(
+        frames, "RA-CTC", jobs=jobs)
+    return stream
+
+
+# make_streams' names first, in its order; the port's own recipes after
+# them (PORT_ONLY)
 GENERATORS = {
     "s1080": lambda: _intra(1920, 1080),
     "s1080_ldp4": lambda: _gop(1920, 1080, 4, "LDP"),
@@ -80,7 +102,10 @@ GENERATORS = {
     "s1080_t8w": lambda: _intra(1920, 1080, tiles_enabled=True,
                                 num_tile_columns=4, num_tile_rows=2,
                                 entropy_coding_sync_enabled=True),
+    # up to five pictures of a GOP have all their references coded at once
+    "s1080_ra17": lambda: _ra_ctc(1920, 1080, 17, jobs=5),
 }
+PORT_ONLY = ("s1080_ra17",)
 
 # BASELINE configuration 5: 4K random-access streams, one IRAP segment
 # (one hierarchical mini-GOP) each, decoded over the stream axis and the

@@ -5,11 +5,13 @@ p265_tpu (parse, DPB, golden decoder, tensor plans, tables, the test
 encoder), so that it
 imports nothing of p265_tpu.  Each copy must equal its original after the
 import rewrite `p265_tpu` -> `p265_tpu_torch`, apart from the deviations
-listed here and in a comment at the top of the copy (four code changes:
+listed here and in a comment at the top of the copy (six code changes:
 attach_pred_planes goes to the port's device MC, the native parse builds
 into the port's build directory, a WPP row whose row above ended before
-its second CTU raises a ValueError, and the native parse's motion replay
-runs in C; and four reworded comments);
+its second CTU raises a ValueError, the native parse's motion replay
+runs in C, the DPB bumps for fullness before the current picture is
+stored, as spec C.5.2.2 does, and the test encoder's inter CU planning
+takes hooks; and four reworded comments);
 the two golden
 decoders must decode the same planes and the two tensor plans must be
 equal, field by field; the committed test streams must be the ones the JAX
@@ -93,6 +95,88 @@ _PORT_REPLAY = '''    def replay_motion(self, plan, mctx):
 
 '''
 
+_PORT_INTER = '''    # -- hooks of the inter CU planning: the defaults code ref_idx 0, the
+    # symmetric 2-PU partitions and uni-L0 sub-PUs (testgen/ctc.py overrides
+    # them for the CTC's random access)
+    def _ref_of(self, lx: int) -> int:
+        """The reference index an AMVP search of list `lx` uses."""
+        return 0
+
+    def _pick_part(self, size: int) -> str:
+        """The partition of an AMVP CU that takes 2 PUs."""
+        return "2NxN" if self.rng.random() < 0.5 else "Nx2N"
+
+    def _search_pu(self, x, y, w, h, is_b):
+        """The motion of one PU of a 2-PU partition, as `_search`."""
+        return self._search(x, y, w, h, False)
+
+    def _search(self, x, y, w, h, is_b):
+        """Motion of one AMVP PU: uni L0, uni L1 or bi (not for 8x4 and 4x8),
+        the cheapest by SAD plus a crude bit cost -> (inter_pred_idc,
+        (mv0, mv1), (ref0, ref1), cost)."""
+        refs = (self._ref_of(0), self._ref_of(1) if is_b else 0)
+        a = derive_amvp(self.mctx, x, y, w, h, 0, refs[0])
+        mv0, c0 = self._motion_search(x, y, w, h, 0, refs[0],
+                                      [a[0], a[1], (0, 0)])
+        options = [(0, c0 + 20, (mv0, (0, 0)))]  # crude bit-cost penalty
+        if is_b:
+            a = derive_amvp(self.mctx, x, y, w, h, 1, refs[1])
+            mv1, c1 = self._motion_search(x, y, w, h, 1, refs[1],
+                                          [a[0], a[1], (0, 0)])
+            options.append((1, c1 + 20, ((0, 0), mv1)))
+            if w + h != 12:
+                # bi-prediction cost (true 14-bit intermediate average)
+                lp = self.mctx.list_pocs
+                bi = combine_bi(
+                    mc_luma(self.ref_by_poc[lp[0][refs[0]]].planes[0],
+                            x, y, w, h, *mv0),
+                    mc_luma(self.ref_by_poc[lp[1][refs[1]]].planes[0],
+                            x, y, w, h, *mv1))
+                orig = self.orig[0][y:y + h, x:x + w]
+                cost = int(np.abs(
+                    orig - bi[:orig.shape[0], :orig.shape[1]]).sum()) + 40
+                options.append((2, cost, (mv0, mv1)))
+        idc, cost, mvs = min(options, key=lambda o: o[1])
+        return idc, mvs, refs, cost
+
+    def _plan_amvp_pu(self, px, py, w, h, idc, mvs, refs, cands) -> Motion:
+        """The PU's pu_plan: a merge candidate where one carries exactly the
+        searched motion, else AMVP with the nearer predictor."""
+        lists = [lx for lx in (0, 1) if idc in (2, lx)]
+        want = Motion()
+        for lx in lists:
+            want.mv[lx] = mvs[lx]
+            want.ref_idx[lx] = refs[lx]
+            want.ref_poc[lx] = self.mctx.list_pocs[lx][refs[lx]]
+        for ci, mc in enumerate(cands):
+            if mc.same_motion(want):
+                self.planner.pu_plans[(px, py)] = {
+                    "merge": True, "merge_idx": ci}
+                return mc.copy()
+        m = Motion()
+        mvds, mvps = [(0, 0), (0, 0)], [0, 0]
+        for lx in lists:
+            a = derive_amvp(self.mctx, px, py, w, h, lx, refs[lx])
+            mv = mvs[lx]
+            d0 = abs(mv[0] - a[0][0]) + abs(mv[1] - a[0][1])
+            d1 = abs(mv[0] - a[1][0]) + abs(mv[1] - a[1][1])
+            mvp_flag = 1 if d1 < d0 else 0
+            mvd = (mv[0] - a[mvp_flag][0], mv[1] - a[mvp_flag][1])
+            m.mv[lx] = (wrap_mv(a[mvp_flag][0] + mvd[0]),
+                        wrap_mv(a[mvp_flag][1] + mvd[1]))
+            m.ref_idx[lx] = refs[lx]
+            m.ref_poc[lx] = self.mctx.list_pocs[lx][refs[lx]]
+            mvds[lx] = mvd
+            mvps[lx] = mvp_flag
+        self.planner.pu_plans[(px, py)] = {
+            "merge": False, "inter_dir": idc,
+            "ref_idx": [refs[0] if 0 in lists else 0,
+                        refs[1] if 1 in lists else 0],
+            "mvd": mvds, "mvp_flag": mvps}
+        return m
+
+'''
+
 # (old, new) text replacements that turn the rewritten original into the
 # copy, or (start, end, new): the original's text from the line `start`
 # up to the line `end` replaced; every other line is verbatim
@@ -158,6 +242,56 @@ DEVIATIONS = {
         # renamed into place; sources and library are arguments
         ("def _build() -> bool:\n", "def _load():\n", _PORT_BUILD),
     ],
+    # C.5.2.2: a full DPB bumps before the current picture is stored, and
+    # the current picture is not counted
+    "dpb/dpb.py": [
+        ("                p.is_reference = False\n"
+         "        self._flush_unneeded()\n\n",
+         "                p.is_reference = False\n"
+         "        self._flush_unneeded()\n"
+         "        self._bump(full=True)\n\n"),
+        ("        self._bump()\n\n"
+         "    def _bump(self) -> None:\n"
+         "        while True:\n",
+         "        self._bump(full=False)\n\n"
+         "    def _bump(self, full: bool) -> None:\n"
+         '        """Output pictures while more than num_reorder_pics wait for '
+         "output\n"
+         "        or, with `full` (C.5.2.2: after the current picture's RPS, "
+         "before it\n"
+         "        is stored, so it is not counted), while the DPB is full.  "
+         "After the\n"
+         "        current picture is stored (C.5.2.3) only the first "
+         'condition holds."""\n'
+         "        while True:\n"),
+        ("            over_size = len(self.pics) >= "
+         "self.sps.max_dec_pic_buffering\n",
+         "            over_size = full and (\n"
+         "                len(self.pics) >= self.sps.max_dec_pic_buffering)\n"),
+    ],
+    # the inter CU planning through hooks (_PORT_INTER), which
+    # testgen/ctc.py overrides; the per-PU search and the PU plan are
+    # _search and _plan_amvp_pu with ref_idx 0
+    "testgen/encoder.py": [
+        ("    def _plan_pb_cu(self, x0, y0, log2_size):\n",
+         _PORT_INTER + "    def _plan_pb_cu(self, x0, y0, log2_size):\n"),
+        ("        # --- candidate B: 2Nx2N AMVP ---\n",
+         "        # --- candidate C: intra ---\n",
+         "        # --- candidate B: 2Nx2N AMVP ---\n"
+         "        is_b = self.slice_type == SLICE_B and "
+         "len(self.mctx.list_pocs[1]) > 0\n"
+         "        amvp = self._search(x0, y0, size, size, is_b)\n\n"),
+        ('("amvp", me_cost)', '("amvp", amvp[3])'),
+        ('            part = "2NxN" if self.rng.random() < 0.5 else "Nx2N"\n',
+         "            part = self._pick_part(size)\n"),
+        ('                if part == "2Nx2N":\n',
+         "            self.mctx.store_pu(px, py, w, h, m)\n",
+         "                idc, mvs, refs, _ = (\n"
+         '                    amvp if part == "2Nx2N"\n'
+         "                    else self._search_pu(px, py, w, h, is_b))\n"
+         "                m = self._plan_amvp_pu(px, py, w, h, idc, mvs, refs, "
+         "cands)\n"),
+    ],
     # the motion replay runs in C (native/replay.py, replay.c)
     "native/parse.py": [
         ("derivation never affects the bitstream, so replay_motion() re-runs\n"
@@ -174,6 +308,8 @@ DEVIATIONS = {
          "        if table is not None:\n"
          "            from p265_tpu_torch.native.replay import pu_records\n"
          "            self.replayed_pus = len(table)\n"
+         "            self.replayed_bi_pus = int(np.count_nonzero(\n"
+         "                (table[:, 8] >= 0) & (table[:, 9] >= 0)))\n"
          "            plan.pus.extend(pu_records(table))\n"),
         # the SAO records through one tolist()
         ("        rec = self.sao.reshape(-1, 20)\n",

@@ -1,10 +1,12 @@
 """The host spans of the port's decoders (p265_tpu_torch/spans.py) on CPU
 tensors: the stats each decoder keeps (wall and thread CPU seconds of the
-motion replay, the tensor plan, the MC pack, the batch pack, the upload,
-the dispatch and the fetch; each picture's wait for the recon worker), the
-`p265:` profiler ranges on the thread that runs each stage and none with
-the profiler off, an incomplete picture's error, and the benchmark's
-readers of those stats.
+motion replay, the tensor plan, the MC pack and its reference stacking,
+the batch pack, the upload, the dispatch and the fetch; each picture's wait
+for the recon worker), the counters of what B pictures add (bi-predicted
+PUs, TMVP pictures, MC blocks, stacked references) on the CTC's random
+access, the `p265:` profiler ranges on the thread that runs each stage and
+none with the profiler off, an incomplete picture's error, and the
+benchmark's readers of those stats.
 """
 import functools
 import itertools
@@ -23,9 +25,12 @@ from p265_tpu_torch import spans
 from p265_tpu_torch.golden.decoder import GoldenDecoder
 from p265_tpu_torch.hls import nal
 from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
-from p265_tpu_torch.pipeline.decoder import SPANS, TorchDecoder
+from p265_tpu_torch.kernels.mc import (CHROMA_BUCKETS, LUMA_BUCKETS,
+                                       mc_block_counts, tile_pu)
+from p265_tpu_torch.pipeline.decoder import COUNTERS, SPANS, TorchDecoder
 from p265_tpu_torch.testgen.conformance import _gop
-from p265_tpu_torch.testgen.streams import get_stream
+from p265_tpu_torch.testgen.ctc import ra_ctc_schedule
+from p265_tpu_torch.testgen.streams import _intra, get_stream
 
 DECODERS = {"serial": TorchDecoder, "pipelined": PipelinedTorchDecoder}
 STREAM = "s96x64_ldp5"
@@ -97,12 +102,13 @@ def test_ranges_on_the_stage_threads(kind):
         if e.name.startswith(spans.PREFIX):
             threads.setdefault(e.name[len(spans.PREFIX):], set()).add(
                 e.thread)
-    for name in ("finalize", "tensor_plan", "mc_pack", "pack", "upload",
-                 "dispatch", "fetch"):
+    for name in ("finalize", "tensor_plan", "mc_pack", "ref_stack", "pack",
+                 "upload", "dispatch", "fetch"):
         assert len(threads.get(name, ())) == 1, (name, threads)
     parse, recon = threads["finalize"], threads["mc_pack"]
     assert threads["tensor_plan"] == parse
-    assert threads["pack"] == threads["dispatch"] == recon
+    assert threads["pack"] == threads["dispatch"] == threads[
+        "ref_stack"] == recon
     assert (parse == recon) == (kind == "serial")
 
 
@@ -270,7 +276,8 @@ def test_readers_are_declared():
         mod, entry = spec.metric(name), declared[name]
         assert (mod.UNIT, mod.LAYER, mod.MOVES, mod.SOURCE, mod.RANGES) == (
             entry["unit"], entry["layer"], "fps", "program_span", {})
-        assert entry["workloads"] == ["main1080_1card.ldp_segments"]
+        assert entry["workloads"] == ["main1080_1card.ldp_segments",
+                                      "main1080_ra_1card.ra_segments"]
 
 
 def test_decoder_keys_exist_before_decoding():
@@ -279,3 +286,84 @@ def test_decoder_keys_exist_before_decoding():
         for name, sfx in itertools.product(SPANS, ("_s", "_cpu_s")):
             assert st[name + sfx] == 0.0
         assert st["queue_wait_s"] == 0.0
+        for name in COUNTERS:
+            assert st[name] == 0, name
+
+
+RA = "s96x64_ractc17"
+
+
+@functools.lru_cache(maxsize=None)
+def _ra_decoded(kind):
+    dec = DECODERS[kind]("cpu")
+    return dec.stats, dec.decode_stream(get_stream(RA))
+
+
+def _tiles(pu) -> int:
+    """The MC blocks of one PU: its luma and its chroma tiles."""
+    return (len(tile_pu(pu.x, pu.y, pu.w, pu.h, LUMA_BUCKETS))
+            + len(tile_pu(pu.x >> 1, pu.y >> 1, pu.w >> 1, pu.h >> 1,
+                          CHROMA_BUCKETS)))
+
+
+@pytest.mark.parametrize("kind", DECODERS)
+def test_counters_of_the_ctc_random_access(kind):
+    """s96x64_ractc17: an IDR and 16 B pictures with TMVP; the counters
+    against the PU records, the MC block census and the GOP table's
+    reference sets (four pictures at most, each a 96x64 4:2:0 slab)."""
+    st, frames = _ra_decoded(kind)
+    pus = [pu for f in frames for pu in f.plan.pus]
+    bi = [pu for pu in pus if min(pu.motion.ref_idx) >= 0]
+    assert st["replay_pus"] == len(pus)
+    assert st["replay_bi_pus"] == len(bi) > 0
+    assert st["tmvp_pictures"] == 16
+    assert st["mc_blocks"] == sum(sum(mc_block_counts(f.plan).values())
+                                  for f in frames if f.plan.pus)
+    assert st["mc_bi_blocks"] == sum(_tiles(pu) for pu in bi) > 0
+    want = sum(len(refs) for _, _, refs in ra_ctc_schedule(17))
+    assert st["ref_pictures"] == want == 57
+    assert st["ref_stack_bytes"] == want * (96 * 64 + 2 * 48 * 32)
+    assert 0 < st["ref_stack_s"] <= st["mc_pack_s"]
+
+
+def test_ref_stack_nests_inside_mc_pack():
+    dec = PipelinedTorchDecoder("cpu")
+    with profile(activities=[ProfilerActivity.CPU],
+                 experimental_config=_ExperimentalConfig(
+                     profile_all_threads=True)) as prof:
+        dec.decode_stream(get_stream(RA))
+    ev = [e for e in prof.events() if e.name.startswith(spans.PREFIX)]
+    packs = [e for e in ev if e.name == spans.PREFIX + "mc_pack"]
+    stacks = [e for e in ev if e.name == spans.PREFIX + "ref_stack"]
+    assert len(stacks) == 16 and len(packs) == 16
+    for s in stacks:
+        assert any(p.thread == s.thread
+                   and p.time_range.start <= s.time_range.start
+                   and s.time_range.end <= p.time_range.end
+                   for p in packs), s
+
+
+def test_counters_are_zero_on_intra_pictures():
+    dec = TorchDecoder("cpu")
+    assert len(dec.decode_stream(_intra(64, 64))) == 1
+    for name in COUNTERS:
+        assert dec.stats[name] == 0, name
+
+
+def test_mc_pack_us_per_block_reader():
+    mod = spec.metric("recon.mc_pack_us_per_block")
+    ranks = [dict(stats=dict(mc_pack_s=0.3, mc_blocks=1000, frames=3)),
+             dict(stats=dict(mc_pack_s=0.1, mc_blocks=600, frames=1))]
+    assert mod.read(ranks) == pytest.approx(0.4 / 1600 * 1e6)
+    assert mod.read([]) is None
+    del ranks[1]["stats"]["mc_blocks"]      # a program without the counter
+    assert mod.read(ranks) is None
+    zero = [dict(stats=dict(mc_pack_s=0.2, mc_blocks=0, frames=1))]
+    assert mod.read(zero) is None           # intra pictures: no block
+    entry = [m for m in spec.benchmark()["per_layer"]
+             if m["name"] == "recon.mc_pack_us_per_block"][0]
+    assert (mod.UNIT, mod.LAYER, mod.MOVES, mod.SOURCE, mod.RANGES) == (
+        entry["unit"], entry["layer"], "fps", "program_span", {}) == (
+        "us", "recon worker", "fps", "program_span", {})
+    assert entry["workloads"] == ["main1080_ra_1card.ra_segments",
+                                  "main1080_1card.ldp_segments"]

@@ -2,7 +2,8 @@
 tools/make_streams.py, and the slice through run_config against the JAX
 package, on the CPU.
 
-- The port's GENERATORS has make_streams' names, and both modules write
+- The port's GENERATORS has make_streams' names, then its own
+  (PORT_ONLY), and both modules write
   the same bytes for s416_ldp4 and for `_intra` with 4x2 tiles and WPP at
   512x256 (8x4 CTBs: each tile 2x2 CTBs, so the WPP sync after a row's
   second CTB falls inside a tile).
@@ -42,6 +43,7 @@ HEADERS = {
     "s4k": (3840, 2160, 1, (1, 1), False),
     "s1080_t8": (1920, 1080, 1, (4, 2), False),
     "s1080_t8w": (1920, 1080, 1, (4, 2), True),
+    "s1080_ra17": (1920, 1080, 17, (1, 1), False),
 }
 TILES_WPP = dict(tiles_enabled=True, num_tile_columns=4, num_tile_rows=2,
                  entropy_coding_sync_enabled=True)
@@ -55,7 +57,8 @@ def _stream(name: str) -> bytes:
 
 
 def test_generator_names_match_make_streams():
-    assert list(streams.GENERATORS) == list(make_streams.GENERATORS)
+    assert list(streams.GENERATORS) == (list(make_streams.GENERATORS)
+                                        + list(streams.PORT_ONLY))
     assert set(HEADERS) == set(streams.GENERATORS)
 
 
