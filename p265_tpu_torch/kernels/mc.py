@@ -2,7 +2,8 @@
 interpolation of size-bucketed MC blocks, uni/bi/weighted combination, and
 the scatter into a prediction plane.  Bit-exact vs golden/inter.py.
 
-Counterpart of p265_tpu/kernels/mc.py (host packing copied, device side in
+Counterpart of p265_tpu/kernels/mc.py (its tiling copied; the host pack,
+`mc_arrays`, one vectorised pass over a picture's PU table; device side in
 torch) and, for the interpolation kernel, p265_tpu/kernels/pallas_mc.py
 (csrc/mc.cu behind `mc_blocks_grouped`, which interpolates every block of
 a picture in one launch; `mc_blocks` is its one-group call).  The host
@@ -20,6 +21,7 @@ import torch
 from p265_tpu_torch.tables import CHROMA_FILTER, LUMA_FILTER
 from p265_tpu_torch.kernels import _build
 from p265_tpu_torch.kernels.staging import stage
+from p265_tpu_torch.native.replay import pu_table
 
 BIT_DEPTH = 8
 
@@ -30,7 +32,7 @@ LUMA_BUCKETS = (16, 8, 4)
 CHROMA_BUCKETS = (8, 4, 2)
 
 # ---------------------------------------------------------------------------
-# host: PU -> block arrays (copies of p265_tpu/kernels/mc.py)
+# host: PU table -> block arrays (tile_pu a copy of p265_tpu/kernels/mc.py)
 # ---------------------------------------------------------------------------
 
 
@@ -58,71 +60,87 @@ def tile_pu(x0: int, y0: int, w: int, h: int, sizes) -> list:
     return out
 
 
-def mc_block_counts(plan) -> dict:
-    """Per-bucket MC block counts {"y16": n, ..., "c2": n} of one picture."""
-    out = {f"{grp}{b}": 0 for grp in ("y", "c")
-           for b in (LUMA_BUCKETS if grp == "y" else CHROMA_BUCKETS)}
-    for p in plan.pus:
-        for grp, sizes, rect in (
-                ("y", LUMA_BUCKETS, (p.x, p.y, p.w, p.h)),
-                ("c", CHROMA_BUCKETS,
-                 (p.x >> 1, p.y >> 1, p.w >> 1, p.h >> 1))):
-            for (_, _, s) in tile_pu(*rect, sizes):
-                out[f"{grp}{s}"] += 1
+@functools.lru_cache(maxsize=None)
+def _template(w: int, h: int, sizes: tuple) -> dict:
+    """tile_pu of a w x h PU at (0, 0), by bucket: {size: [k, 2] (dy, dx)
+    int32}, each bucket's tiles in tile_pu's order."""
+    tiles = tile_pu(0, 0, w, h, sizes)
+    return {s: np.array([(ty, tx) for ty, tx, ts in tiles if ts == s],
+                        np.int32).reshape(-1, 2) for s in sizes}
+
+
+_NO_TILE = np.zeros((0, 2), np.int32)
+_GROUPS = (("y", LUMA_BUCKETS, 0), ("c", CHROMA_BUCKETS, 1))
+
+
+def _tiled(rect: np.ndarray, sizes: tuple) -> dict:
+    """Every PU rectangle of rect [n, 4] (x, y, w, h) tiled as tile_pu
+    tiles it, without a loop over the PUs: each distinct shape is tiled
+    once into a template, which np.repeat and a gather lay at every PU of
+    that shape.  -> {size: (pu_of [m] int64, pos [m, 2] (y, x) int32)},
+    rows in PU order, then in tile_pu's order."""
+    n = len(rect)
+    shape_id, inv = np.unique(rect[:, 2].astype(np.int64) << 32 | rect[:, 3],
+                              return_inverse=True)
+    temps = [_template(int(k >> 32), int(k & 0xFFFFFFFF), sizes)
+             for k in shape_id]
+    out = {}
+    for s in sizes:
+        per_shape = np.array([len(t[s]) for t in temps], np.int64)
+        flat = np.concatenate([t[s] for t in temps] + [_NO_TILE])
+        cnt = per_shape[inv]
+        pu_of = np.repeat(np.arange(n), cnt)
+        # the row of each tile in `flat`: its shape's first row, plus its
+        # rank among its PU's tiles
+        first = (np.cumsum(per_shape) - per_shape)[inv]
+        rank = np.arange(len(pu_of)) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+        pos = flat[np.repeat(first, cnt) + rank] + rect[pu_of][:, [1, 0]]
+        out[s] = pu_of, pos
     return out
 
 
-def mc_arrays_padded(plan, poc_index: dict, pad_rows: dict):
-    """All inter PUs -> size-bucketed MC block arrays.
+def _ref_index(pocs: np.ndarray, poc_list) -> np.ndarray:
+    """The index in poc_list of each POC of `pocs` (np.searchsorted on the
+    sorted list); a POC the list lacks raises KeyError."""
+    keys = np.asarray(poc_list, np.int64)
+    order = np.argsort(keys, kind="stable")
+    at = np.searchsorted(keys[order], pocs)
+    ok = at < len(keys)
+    ok[ok] = keys[order[at[ok]]] == pocs[ok]
+    if not ok.all():
+        raise KeyError(int(pocs[~ok][0]))
+    return order[at].astype(np.int32)
+
+
+def mc_arrays(plan, poc_list) -> dict:
+    """A picture's inter PUs -> its size-bucketed MC block arrays, in one
+    vectorised pass over its PU table (native/replay.py `pu_table` of
+    plan.pus: [n, PU_W] int32, x, y, w, h, mv[2][2], ref_idx[2],
+    ref_poc[2], lt[2]; a native-parsed picture's own table, else one
+    built from its PuRec objects).
 
     Returns {"y": {block: fields}, "c": {block: fields}} with fields pos
-    [n,2] (y, x), mv0/mv1 [n,2], r0/r1 [n], has1 [n] bool and weight rows
-    wp_0 (luma) or wp_1/wp_2 (cb/cr) [n,5] = (w0, o0, w1, o1, log2_wd);
-    identity weights (1, 0, 1, 0, 0) reproduce unweighted rounding.
-    pad_rows {"y16": n, ...} gives each bucket's row count; the port passes
-    mc_block_counts(plan), so nothing is padded.  Pad rows, where a count
-    exceeds the blocks, sit at pos = (plane height, 0) and are dropped by
-    mc_pred_planes."""
-    pus = plan.pus
-    npu = len(pus)
-
-    def pad_only(grp, block, ph):
-        tgt = pad_rows[f"{grp}{block}"]
-        d = dict(pos=np.full((tgt, 2), 0, np.int32),
-                 mv0=np.zeros((tgt, 2), np.int32),
-                 mv1=np.zeros((tgt, 2), np.int32),
-                 r0=np.zeros(tgt, np.int32),
-                 r1=np.zeros(tgt, np.int32),
-                 has1=np.zeros(tgt, bool))
-        d["pos"][:] = (ph, 0)
-        wp = np.zeros((tgt, 5), np.int32)
-        wp[:, 0] = wp[:, 2] = 1
-        if grp == "y":
-            d["wp_0"] = wp
-        else:
-            d["wp_1"], d["wp_2"] = wp, wp.copy()
-        return d
-
-    if npu == 0:
-        return {grp: {b: pad_only(grp, b, ph) for b in sizes}
-                for grp, sizes, ph in
-                (("y", LUMA_BUCKETS, plan.sps.pic_height),
-                 ("c", CHROMA_BUCKETS, plan.sps.pic_height >> 1))}
-
-    uses1 = np.array([p.motion.uses(1) for p in pus], bool)
-    uses0 = np.array([p.motion.uses(0) for p in pus], bool)
-    l0 = np.where(uses0, 0, 1)                   # first used list per PU
-    mv = np.array([p.motion.mv for p in pus], np.int32).reshape(npu, 2, 2)
-    rpoc = np.array([p.motion.ref_poc for p in pus], np.int64)
-    ridx = np.array([p.motion.ref_idx for p in pus], np.int32)
-    ar = np.zeros((npu, 2), np.int32)
+    [n,2] (y, x), mv0/mv1 [n,2], r0/r1 [n] (indices into poc_list), has1
+    [n] bool and weight rows wp_0 (luma) or wp_1/wp_2 (cb/cr) [n,5] =
+    (w0, o0, w1, o1, log2_wd); identity weights (1, 0, 1, 0, 0) reproduce
+    unweighted rounding.  A block's first list is the PU's first used
+    list; has1 marks a PU that uses both.  Each PU is tiled greedily with
+    the largest fitting square blocks (tile_pu; chroma at half its
+    rectangle), and a bucket's rows run in PU order, then in tile_pu's
+    order.  A reference POC that poc_list lacks raises KeyError."""
+    t = pu_table(plan.pus)
+    n = len(t)
+    rows = np.arange(n)
+    uses = t[:, 8:10] >= 0
+    l0 = np.where(uses[:, 0], 0, 1)              # first used list per PU
+    mv = t[:, 4:8].reshape(n, 2, 2)
+    ridx = t[:, 8:10]
+    ar = np.zeros((n, 2), np.int32)
     for lx in range(2):
-        use = uses1 if lx else uses0
-        for i in np.nonzero(use)[0]:
-            ar[i, lx] = poc_index[int(rpoc[i, lx])]
-    mv0 = mv[np.arange(npu), l0]
-    r0 = ar[np.arange(npu), l0]
-    has1 = uses0 & uses1
+        ar[uses[:, lx], lx] = _ref_index(t[uses[:, lx], 10 + lx], poc_list)
+    mv0 = mv[rows, l0]
+    r0 = ar[rows, l0]
+    has1 = uses[:, 0] & uses[:, 1]
     mv1 = np.where(has1[:, None], mv[:, 1], 0).astype(np.int32)
     r1 = np.where(has1, ar[:, 1], 0).astype(np.int32)
 
@@ -130,61 +148,69 @@ def mc_arrays_padded(plan, poc_index: dict, pad_rows: dict):
     if ((plan.pps.weighted_pred and plan.sh.slice_type == 1)
             or (plan.pps.weighted_bipred and plan.sh.slice_type == 0)):
         wt = plan.sh.pred_weights
-    wp_pu = np.zeros((3, npu, 5), np.int32)
+    wp_pu = np.zeros((3, n, 5), np.int32)
     wp_pu[:, :, 0] = 1   # w0
     wp_pu[:, :, 2] = 1   # w1
-    if wt is not None:
-        for i, p in enumerate(pus):
-            for c in range(3):
-                denom = wt.luma_log2_denom if c == 0 else wt.chroma_log2_denom
-                wp_pu[c, i, 4] = denom + (14 - BIT_DEPTH) - 6
-                off = 0 if c == 0 else 2 * c
-                e0 = wt.get(int(l0[i]), int(ridx[i, l0[i]]))
-                wp_pu[c, i, 0], wp_pu[c, i, 1] = e0[off], e0[off + 1]
-                if has1[i]:
-                    e1 = wt.get(1, int(ridx[i, 1]))
-                    wp_pu[c, i, 2], wp_pu[c, i, 3] = e1[off], e1[off + 1]
+    if wt is not None and n:
+        # the weights of each (list, ref_idx): lut[lx, ref_idx] = (w, o) of
+        # luma, cb, cr
+        lut = np.array([[wt.get(lx, r) for r in range(int(ridx.max()) + 1)]
+                        for lx in range(2)], np.int32).reshape(2, -1, 6)
+        e0 = lut[l0, ridx[rows, l0]]
+        e1 = lut[1, np.where(has1, ridx[:, 1], 0)]
+        for c in range(3):
+            denom = wt.luma_log2_denom if c == 0 else wt.chroma_log2_denom
+            wp_pu[c, :, 4] = denom + (14 - BIT_DEPTH) - 6
+            wp_pu[c, :, 0:2] = e0[:, 2 * c:2 * c + 2]
+            wp_pu[c, has1, 2:4] = e1[has1, 2 * c:2 * c + 2]
 
     out = {}
-    for grp, sizes, ph in (("y", LUMA_BUCKETS, plan.sps.pic_height),
-                           ("c", CHROMA_BUCKETS, plan.sps.pic_height >> 1)):
-        tiles = {b: [] for b in sizes}   # per bucket: (y, x, pu_idx)
-        for i, p in enumerate(pus):
-            if grp == "y":
-                rect = (p.x, p.y, p.w, p.h)
-            else:
-                rect = (p.x >> 1, p.y >> 1, p.w >> 1, p.h >> 1)
-            for (ty, tx, s) in tile_pu(*rect, sizes):
-                tiles[s].append((ty, tx, i))
+    for grp, sizes, shift in _GROUPS:
         out[grp] = {}
-        for b in sizes:
-            rows = tiles[b]
-            n = len(rows)
-            tgt = pad_rows[f"{grp}{b}"]
-            if tgt < n:
-                raise ValueError(f"pad_rows[{grp}{b}]={tgt} < {n} blocks")
-            if n == 0:
-                out[grp][b] = pad_only(grp, b, ph)
-                continue
-            pos = np.array([(r[0], r[1]) for r in rows], np.int32)
-            pu_of = np.array([r[2] for r in rows], np.int32)
-
-            def padded(a, fill=0):
-                full = np.full((tgt,) + a.shape[1:], fill, a.dtype)
-                full[:n] = a
-                return full
-
-            d = dict(pos=padded(pos), mv0=padded(mv0[pu_of]),
-                     mv1=padded(mv1[pu_of]), r0=padded(r0[pu_of]),
-                     r1=padded(r1[pu_of]), has1=padded(has1[pu_of]))
-            d["pos"][n:] = (ph, 0)
-            if grp == "y":
-                d["wp_0"] = padded(wp_pu[0][pu_of])
-            else:
-                d["wp_1"] = padded(wp_pu[1][pu_of])
-                d["wp_2"] = padded(wp_pu[2][pu_of])
+        for b, (pu_of, pos) in _tiled(t[:, :4] >> shift, sizes).items():
+            d = dict(pos=pos, mv0=mv0[pu_of], mv1=mv1[pu_of], r0=r0[pu_of],
+                     r1=r1[pu_of], has1=has1[pu_of])
+            for c in ((0,) if grp == "y" else (1, 2)):
+                d[f"wp_{c}"] = wp_pu[c][pu_of]
             out[grp][b] = d
     return out
+
+
+def mc_block_counts(plan) -> dict:
+    """Per-bucket MC block counts {"y16": n, ..., "c2": n} of one picture
+    (of any object with `pus`): the rows mc_arrays gives each bucket."""
+    t = pu_table(plan.pus)
+    return {f"{grp}{b}": len(pu_of) for grp, sizes, shift in _GROUPS
+            for b, (pu_of, _) in _tiled(t[:, :4] >> shift, sizes).items()}
+
+
+def mc_arrays_padded(plan, poc_index: dict, pad_rows: dict):
+    """mc_arrays of plan.pus with reference indices poc_index {poc: i}
+    (i = 0..R-1), each bucket then padded to pad_rows {"y16": n, ...}
+    rows: the fixed-shape layout of the JAX package's function of that
+    name, for the tests and the kernels' random cases.  Pad rows sit at
+    pos = (plane height, 0), which mc_pred_planes drops, with every other
+    field 0; in a bucket with no block their weights are the identity."""
+    poc_list = sorted(poc_index, key=poc_index.__getitem__)
+    if [poc_index[p] for p in poc_list] != list(range(len(poc_list))):
+        raise ValueError("mc_arrays_padded: poc_index must number its "
+                         "POCs 0..R-1")
+    arrays = mc_arrays(plan, poc_list)
+    for grp, ph in (("y", plan.sps.pic_height),
+                    ("c", plan.sps.pic_height >> 1)):
+        for b, d in arrays[grp].items():
+            n, tgt = len(d["pos"]), pad_rows[f"{grp}{b}"]
+            if tgt < n:
+                raise ValueError(f"pad_rows[{grp}{b}]={tgt} < {n} blocks")
+            for k, a in d.items():
+                d[k] = np.zeros((tgt,) + a.shape[1:], a.dtype)
+                d[k][:n] = a
+            d["pos"][n:] = (ph, 0)
+            if n == 0:
+                for k in d:
+                    if k.startswith("wp_"):
+                        d[k][:, 0] = d[k][:, 2] = 1
+    return arrays
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +376,7 @@ def combine(p0, p1, has_l1, w_params):
 
 
 def uses_l1(arrays) -> bool:
-    """Host: whether any block of mc_arrays_padded's arrays reads list 1
+    """Host: whether any block of mc_arrays's arrays reads list 1
     (the has_bi of mc_pred_planes, known without a device sync)."""
     return any(bool(a["has1"].any()) for grp in arrays.values()
                for a in grp.values())
@@ -408,7 +434,7 @@ def mc_pred_planes(stacks, arrays, shapes, has_bi: bool, out=None) -> list:
     plane interpolated, combined and placed by ONE launch of csrc/mc.cu.
 
     stacks (y, cb, cr) uint8 reference stacks [R,H,W] (device-resident DPB
-    slabs); arrays {"y": {block: fields}, "c": {...}} as mc_arrays_padded
+    slabs); arrays {"y": {block: fields}, "c": {...}} as mc_arrays
     gives them, as tensors on the same device; shapes the three plane
     shapes.  has_bi False skips the second list.  out None: the planes are
     new [H, W] int32 tensors, 0 where no block lies.  out = (plane, rows):
@@ -526,8 +552,7 @@ def build_inter_pred_device(plan, refs: dict, device):
     shapes = ((H, W), (H >> 1, W >> 1), (H >> 1, W >> 1))
     if plan.pus:
         poc_list = sorted(refs)
-        arrays = mc_arrays_padded(plan, {p: i for i, p in enumerate(poc_list)},
-                                  mc_block_counts(plan))
+        arrays = mc_arrays(plan, poc_list)
         out = mc_pred_planes(ref_stacks(refs, poc_list, device),
                              stage(arrays, device), shapes, uses_l1(arrays))
     else:

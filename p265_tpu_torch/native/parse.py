@@ -1,7 +1,8 @@
 # Copy of p265_tpu/native/parse.py.  Deviations: the motion replay runs in
 # C (replay.c), one call a picture that releases the interpreter lock;
-# replay_motion returns its PU table, from which finalize builds plan.pus
-# (replay.py pu_records) and counts the PUs and the bi-predicted ones;
+# replay_motion returns its PU table, which finalize keeps as plan.pus
+# (replay.py PuList: the objects built only when read) and in which it
+# counts the PUs and the bi-predicted ones;
 # finalize reads the SAO records through one tolist().
 """Native Stage-A slice parsing: ctypes bindings for ctu.c's per-CTU parser
 plus vectorized tensor-plan assembly.
@@ -383,11 +384,11 @@ class NativeParseState:
         self._finalized = True
         table = self.replay_motion(plan, mctx)
         if table is not None:
-            from p265_tpu_torch.native.replay import pu_records
+            from p265_tpu_torch.native.replay import PuList
             self.replayed_pus = len(table)
             self.replayed_bi_pus = int(np.count_nonzero(
                 (table[:, 8] >= 0) & (table[:, 9] >= 0)))
-            plan.pus.extend(pu_records(table))
+            plan.pus = PuList(table)
         from p265_tpu_torch.syntax.ctu import SaoRec
         plan.sao = [SaoRec(type=r[0:3], cls=r[3:6],
                            offsets=[r[6:10], r[10:14], r[14:18]],

@@ -7,11 +7,14 @@ lists and collocated grids, to replay.c, which derives every PU's merge or
 AMVP motion (golden/mv.py mirrored bit for bit), writes the MotionCtx
 grids in place and returns one row a PU.  The library is loaded with
 `ctypes.CDLL`, so the interpreter lock is released for the whole call and
-the recon worker's NumPy and Python run meanwhile.
+the recon worker's NumPy and Python run meanwhile.  The table stays the
+picture's plan.pus (`PuList`): the MC pack reads it as it is, and PuRec
+objects are built only for a reader that iterates it.
 """
 from __future__ import annotations
 
 import ctypes
+from collections.abc import Sequence
 
 import numpy as np
 
@@ -134,11 +137,46 @@ def replay_motion(events: np.ndarray, plan, mctx) -> np.ndarray:
 
 
 def pu_records(table: np.ndarray) -> list:
-    """PuRec objects of a PU table, in its order: the records plan.pus
-    holds for the MC pack, the golden recon, the census and the shards."""
+    """PuRec objects of a PU table, in its order: what iterating plan.pus
+    yields to the golden recon and the census."""
     from p265_tpu_torch.golden.mv import Motion
     from p265_tpu_torch.syntax.ctu import PuRec
     return [PuRec(x, y, w, h, Motion([(a, b), (c, d)], [r0, r1], [p0, p1],
                                      [l0 != 0, l1 != 0]))
             for x, y, w, h, a, b, c, d, r0, r1, p0, p1, l0, l1
             in table.tolist()]
+
+
+def pu_table(pus) -> np.ndarray:
+    """The PU table of a picture's plan.pus: a PuList's own table, else
+    one built from the PuRec objects (the Python parse, the encoder);
+    list 0 or 1 unused where ref_idx < 0."""
+    if isinstance(pus, PuList):
+        return pus.table
+    return np.array([(p.x, p.y, p.w, p.h, *p.motion.mv[0], *p.motion.mv[1],
+                      *p.motion.ref_idx, *p.motion.ref_poc, *p.motion.lt)
+                     for p in pus], np.int32).reshape(-1, PU_W)
+
+
+class PuList(Sequence):
+    """plan.pus of a picture the native parse replayed: the PU table, read
+    only, and the PuRec objects built from it on first use.
+
+    len() and bool() read the table, so the decoders' hot path (the MC
+    pack reads `table`) builds no object; indexing and iteration build
+    the objects once (pu_records).  Copies and pickles keep the table."""
+
+    def __init__(self, table: np.ndarray):
+        self.table = table
+        self._records = None
+
+    def __len__(self) -> int:
+        return len(self.table)
+
+    def __getitem__(self, i):
+        if self._records is None:
+            self._records = pu_records(self.table)
+        return self._records[i]
+
+    def __iter__(self):
+        return iter(self[:])

@@ -48,7 +48,7 @@ def build_batch(tplans: list, plans: list, mc: list | None = None,
                 stats: dict | None = None) -> dict:
     """Host: F frame plans of one resolution -> the batch's arrays.
 
-    mc: optional per-frame list of kernels.mc.mc_arrays_padded dicts; each
+    mc: optional per-frame list of kernels.mc.mc_arrays dicts; each
     frame's prediction planes are then computed on the device from its
     reference slabs.  Without mc, a tensor plan's attached prediction
     planes (PlanePlan.inter_pred) are taken.  Returns a dict: "meta" (static shapes and flags), "tu"

@@ -17,8 +17,7 @@ import torch
 
 from p265_tpu_torch.golden.decoder import DecoderBase, apply_loop_filters
 from p265_tpu_torch.kernels.loopfilter import filter_flags, loop_filters
-from p265_tpu_torch.kernels.mc import (mc_arrays_padded, mc_block_counts,
-                                       ref_stacks)
+from p265_tpu_torch.kernels.mc import mc_arrays, ref_stacks
 from p265_tpu_torch.pipeline.batch_decode import (build_batch,
                                                   decode_batch_planes)
 from p265_tpu_torch.pipeline.wavefront import reconstruct_scan
@@ -37,11 +36,13 @@ SPANS = ("finalize", "tensor_plan", "mc_pack", "ref_stack", "pack", "upload",
 # replay_pus and replay_bi_pus (the PUs the native motion replay derived,
 # and those with both ref_idx >= 0) and tmvp_pictures (pictures whose
 # slices have TMVP on); the recon worker's mc_blocks and mc_bi_blocks (the
-# MC blocks mc_arrays_padded packed, and those with a second list),
+# MC blocks mc_arrays packed, and those with a second list),
 # ref_pictures and ref_stack_bytes (the reference pictures stacked for
-# K2, and the stacks' bytes)
+# K2, and the stacks' bytes) and mc_table_pictures (the pictures packed
+# straight from the motion replay's PU table, not from PuRec objects)
 COUNTERS = ("replay_pus", "replay_bi_pus", "tmvp_pictures", "mc_blocks",
-            "mc_bi_blocks", "ref_pictures", "ref_stack_bytes")
+            "mc_bi_blocks", "ref_pictures", "ref_stack_bytes",
+            "mc_table_pictures")
 
 
 def slabs_from_numpy(planes, device) -> list:
@@ -232,9 +233,7 @@ class TorchDecoder(DecoderBase):
             with span(st, "mc_pack"):
                 for t, plan in zip(tasks, plans):
                     poc_list = sorted(t["refs"])
-                    mc.append(mc_arrays_padded(
-                        plan, {p: i for i, p in enumerate(poc_list)},
-                        mc_block_counts(plan)))
+                    mc.append(mc_arrays(plan, poc_list))
                     with span(st, "ref_stack"):
                         refs.append(ref_stacks(
                             {p: r.planes for p, r in t["refs"].items()},
@@ -247,6 +246,8 @@ class TorchDecoder(DecoderBase):
                                       for b in blocks)
             st["ref_pictures"] += sum(len(t["refs"]) for t in tasks)
             st["ref_stack_bytes"] += sum(s.nbytes for r in refs for s in r)
+            st["mc_table_pictures"] += sum(
+                getattr(p.pus, "table", None) is not None for p in plans)
         batch = build_batch(tplans, plans, mc=mc, stats=self.stats)
         pl, pc, fl, fc = decode_batch_planes(batch, refs, self.device,
                                              stats=self.stats)

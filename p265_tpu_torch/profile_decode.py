@@ -19,8 +19,9 @@ After one warm-up pass it prints:
    PUs it derived (stats["replay_pus"]), the bi-predicted ones
    (replay_bi_pus) and its `finalize` span, the pictures with TMVP on
    (tmvp_pictures), and the MC pack: its blocks (mc_blocks, mc_bi_blocks),
-   the reference pictures it stacked (ref_pictures, ref_stack_bytes) and
-   its `mc_pack` and `ref_stack` spans.
+   the reference pictures it stacked (ref_pictures, ref_stack_bytes), its
+   `mc_pack` and `ref_stack` spans and the pictures it packed straight
+   from the motion replay's PU table (mc_table_pictures).
 
 --json writes the stage table's sums over the dispatches of the stages
 that p265_tpu_torch.roofline counts as a whole, {stage: seconds a pass}
@@ -65,7 +66,7 @@ def _stage_table(data: bytes, dag: int) -> dict:
         return f
 
     stages = [(dm, "build_tensor_plan", "tensor plan"),
-              (dm, "mc_arrays_padded", "MC pack"),
+              (dm, "mc_arrays", "MC pack"),
               (dm, "build_batch", "batch pack"),
               (bd, "stage", "upload"),
               (bd, "mc_pred_planes", "MC"),
@@ -150,7 +151,9 @@ def _profile_window(data: bytes, dag: int) -> None:
           f"second list), {st['ref_pictures']} reference pictures stacked "
           f"({st['ref_stack_bytes']} bytes); mc_pack "
           f"{st['mc_pack_s'] * 1e3:.2f} ms wall, ref_stack "
-          f"{st['ref_stack_s'] * 1e3:.2f} ms wall")
+          f"{st['ref_stack_s'] * 1e3:.2f} ms wall; "
+          f"{st['mc_table_pictures']} pictures packed from the replay's "
+          "PU table")
 
 
 def h2d_copies(prof) -> list:

@@ -15,14 +15,14 @@ and times, best of `reps` on warm caches:
   recon_s;
 - each Stage-B host phase of the port: the tensor plan (`_build_tplan`),
   `merge_segments`, `hoist_inter`, `stack_plane`, `pack_filter_params`,
-  `mc_block_counts` and `mc_arrays_padded` (P pictures), `pcm_samples`,
+  `mc_arrays` (P pictures: the MC pack over the PU table), `pcm_samples`,
   the whole `build_batch`, the staging fill (kernels/staging.py `fill`
   into a ring slot), the enqueue of its one copy (`send`), and the
   dispatch plus the fetch of the output planes (`decode_batch_planes` +
   `fetch_planes`, synchronised; its planes must equal the warm-up's);
 - the "rest" of a dispatch, the part of a serial TorchDecoder dispatch
-  that profile_decode's stage table charges to no stage: `mc_block_counts`
-  and `ref_stacks` (P pictures), the hoisted inter TUs' K1 call, scatter
+  that profile_decode's stage table charges to no stage: `ref_stacks`
+  (P pictures), the hoisted inter TUs' K1 call, scatter
   and clip (`init_plane`) and the fetch, each synchronised; the serial
   dispatch itself (`_run_recon_group`, synchronised); and what is left of
   it when the parts the phases above time are taken away (`unexplained`).
@@ -120,14 +120,9 @@ def picture(dec, task, frame, device, reps: int) -> dict:
     mc_arr = refs = None
     if plan.pus:
         poc_list = sorted(task["refs"])
-        pidx = {p: i for i, p in enumerate(poc_list)}
         slabs = {p: r.planes for p, r in task["refs"].items()}
-        cnt = mc.mc_block_counts(plan)
-        ph["mc_block_counts"] = rest["mc_block_counts"] = best(
-            lambda: mc.mc_block_counts(plan), reps)
-        ph["mc_arrays_padded"] = best(
-            lambda: mc.mc_arrays_padded(plan, pidx, cnt), reps)
-        mc_arr = [mc.mc_arrays_padded(plan, pidx, cnt)]
+        ph["mc_arrays"] = best(lambda: mc.mc_arrays(plan, poc_list), reps)
+        mc_arr = [mc.mc_arrays(plan, poc_list)]
 
         def stacks():
             out = mc.ref_stacks(slabs, poc_list, device)
@@ -180,8 +175,8 @@ def picture(dec, task, frame, device, reps: int) -> dict:
         _sync(device)
     rest["serial_dispatch"] = best(serial, reps)
     rest["unexplained"] = rest["serial_dispatch"] - sum(
-        ph.get(k, 0.0) for k in ("mc_block_counts", "mc_arrays_padded",
-                                 "build_batch", "dispatch_fetch")) - rest.get(
+        ph.get(k, 0.0) for k in ("mc_arrays", "build_batch",
+                                 "dispatch_fetch")) - rest.get(
         "ref_stacks", 0.0)
     return dict(poc=plan.poc, kind="P" if plan.pus else "I",
                 leaves=len(arrays), h2d_bytes=nbytes,

@@ -12,8 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from p265_tpu_torch.kernels.mc import (mc_arrays_padded, mc_block_counts,
-                                       ref_stacks)
+from p265_tpu_torch.kernels.mc import mc_arrays, ref_stacks
 from p265_tpu_torch.pipeline.batch_decode import (build_batch,
                                                   decode_batch_planes)
 from p265_tpu_torch.shard.mesh import gather_planes
@@ -35,8 +34,7 @@ def sharded_multistream_recon(tplan, group, device, refs: dict | None = None
             raise ValueError("sharded_multistream_recon: an inter picture "
                              "needs its reference planes")
         poc_list = sorted(refs)
-        mc = [mc_arrays_padded(plan, {p: i for i, p in enumerate(poc_list)},
-                               mc_block_counts(plan))]
+        mc = [mc_arrays(plan, poc_list)]
         stacks = [ref_stacks(refs, poc_list, device)]
     pl, pc, _, _ = decode_batch_planes(build_batch([tplan], [plan], mc=mc),
                                        stacks, device)

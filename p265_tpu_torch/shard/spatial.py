@@ -44,9 +44,8 @@ from p265_tpu_torch.golden.decoder import DecoderBase, bypass_pixel_masks
 from p265_tpu_torch.kernels.loopfilter import (
     chroma_edge_params, deblock_chroma_vertical, deblock_luma_vertical,
     filter_flags, luma_edge_params)
-from p265_tpu_torch.kernels.mc import (mc_arrays_padded, mc_block_counts,
-                                       mc_pred_planes, ref_stacks, stamp_pcm,
-                                       uses_l1)
+from p265_tpu_torch.kernels.mc import (mc_arrays, mc_pred_planes,
+                                       ref_stacks, stamp_pcm, uses_l1)
 from p265_tpu_torch.kernels.staging import stage
 from p265_tpu_torch.pipeline.wavefront import (GUARD, hoist_inter,
                                                merge_segments, run_scan,
@@ -241,9 +240,7 @@ def mc_spatial(plan, refs: dict, group, device) -> list | None:
             full = g[:, off:off + k].reshape(n, *s.shape).transpose(0, 1)
             stacks.append(full.reshape(s.shape[0], -1, w)[:, :h].contiguous())
             off += k
-        arrays = _band_blocks(mc_arrays_padded(
-            plan, {p: i for i, p in enumerate(poc_list)},
-            mc_block_counts(plan)), hls, rank)
+        arrays = _band_blocks(mc_arrays(plan, poc_list), hls, rank)
         planes = mc_pred_planes(stacks, stage(arrays, device), shapes,
                                 uses_l1(arrays))
         bands = [local_rows(p, rank, hl) for p, hl in zip(planes, hls)]

@@ -9,7 +9,7 @@ listed here and in a comment at the top of the copy (six code changes:
 attach_pred_planes goes to the port's device MC, the native parse builds
 into the port's build directory, a WPP row whose row above ended before
 its second CTU raises a ValueError, the native parse's motion replay
-runs in C, the DPB bumps for fullness before the current picture is
+runs in C and its PU table is kept as plan.pus, the DPB bumps for fullness before the current picture is
 stored, as spec C.5.2.2 does, and the test encoder's inter CU planning
 takes hooks; and four reworded comments);
 the two golden
@@ -306,11 +306,11 @@ DEVIATIONS = {
         ("        self.replay_motion(plan, mctx)\n",
          "        table = self.replay_motion(plan, mctx)\n"
          "        if table is not None:\n"
-         "            from p265_tpu_torch.native.replay import pu_records\n"
+         "            from p265_tpu_torch.native.replay import PuList\n"
          "            self.replayed_pus = len(table)\n"
          "            self.replayed_bi_pus = int(np.count_nonzero(\n"
          "                (table[:, 8] >= 0) & (table[:, 9] >= 0)))\n"
-         "            plan.pus.extend(pu_records(table))\n"),
+         "            plan.pus = PuList(table)\n"),
         # the SAO records through one tolist()
         ("        rec = self.sao.reshape(-1, 20)\n",
          "\n    def replay_motion(self, plan, mctx) -> None:\n",

@@ -3,7 +3,8 @@ tensors: the stats each decoder keeps (wall and thread CPU seconds of the
 motion replay, the tensor plan, the MC pack and its reference stacking,
 the batch pack, the upload, the dispatch and the fetch; each picture's wait
 for the recon worker), the counters of what B pictures add (bi-predicted
-PUs, TMVP pictures, MC blocks, stacked references) on the CTC's random
+PUs, TMVP pictures, MC blocks, stacked references, the pictures packed
+from the motion replay's PU table) on the CTC's random
 access, the `p265:` profiler ranges on the thread that runs each stage and
 none with the profiler off, an incomplete picture's error, and the
 benchmark's readers of those stats.
@@ -324,6 +325,21 @@ def test_counters_of_the_ctc_random_access(kind):
     assert st["ref_pictures"] == want == 57
     assert st["ref_stack_bytes"] == want * (96 * 64 + 2 * 48 * 32)
     assert 0 < st["ref_stack_s"] <= st["mc_pack_s"]
+    # every B picture packed straight from the motion replay's PU table
+    assert st["mc_table_pictures"] == 16
+
+
+@pytest.mark.parametrize("kind", DECODERS)
+def test_mc_table_pictures_counts_only_replay_tables(kind):
+    """The Python parse hands the MC pack PuRec objects, whose table the
+    pack builds itself: the same blocks, and no picture counted."""
+    dec = DECODERS[kind]("cpu", use_native_parse=False)
+    frames = dec.decode_stream(get_stream(RA))
+    st, (native, _) = dec.stats, _ra_decoded(kind)
+    assert st["mc_table_pictures"] == 0 < native["mc_table_pictures"]
+    for name in ("mc_blocks", "mc_bi_blocks", "ref_pictures"):
+        assert st[name] == native[name], name
+    assert len(frames) == 17
 
 
 def test_ref_stack_nests_inside_mc_pack():

@@ -246,7 +246,7 @@ def test_profile_pack_cpu(capsys):
     for p in pics:
         assert all(v >= 0 for v in p["phases"].values())
         assert p["h2d_bytes"] > 0 and p["finalize_s"] > 0
-        assert ("mc_arrays_padded" in p["phases"]) == (p["kind"] == "P")
+        assert ("mc_arrays" in p["phases"]) == (p["kind"] == "P")
         assert ("ref_stacks" in p["rest"]) == (p["kind"] == "P")
     assert len(rec["passes"]["serial"]) == len(rec["passes"]["pipelined"])
     assert all(s > 0 for s in rec["passes"]["serial"])
