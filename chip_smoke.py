@@ -43,10 +43,11 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    bit-exact.
 5. frame DAG, small: s96x64_ra5 through PipelinedTorchDecoder with
    frame_dag_max 1 and 4, bit-exact, sibling B pictures batched at 4 only.
-6. unfused and per-stage paths (96x64 LDP and RA): TorchDecoder on cuda
-   with fused=False, filters_on_device=False, apply_filters=False and
-   use_native_parse=False against golden; reconstruct_scan_frames +
-   loop_filters_frames against the fused decoder's planes.
+6. options and per-stage paths (96x64 LDP and RA): TorchDecoder on cuda
+   with apply_filters=False (against the unfiltered golden, no deblocking
+   or SAO launch) and with use_native_parse=False, bit-exact;
+   reconstruct_scan_frames + loop_filters_frames against the decoder's
+   planes.
 7. options: a two-GOP stream (s96x64_ldp5 twice) with a truncated slice
    under error_resilient (errors recorded, the second GOP bit-exact);
    save_state on cuda halfway, load_state into a new decoder, the tail
@@ -134,28 +135,20 @@ Phases, in order; any failure raises and exits nonzero (nothing falls back):
    aten::where in the window (every thread); then
    `python -m p265_tpu_torch.profile_pack s1080_ldp4` as a subprocess,
    its one JSON line printed.
-16. measuring modules: `python -m p265_tpu_torch.bench --golden DIR` as a
-   subprocess (s1080_ldp4 gated against golden, its s1080_ldp16
-   steady-state row gated too, both goldens read from the workers' files;
-   exactly one stdout line, JSON with metric, value > 0, unit and
-   vs_baseline, exit 0; the launches of every pass on its stderr equal
-   KERNELS', the steady row's STREAMS'; its stderr record is printed).
-   vs_baseline here divides a golden decode timed in a worker that shared
-   the host with the others and the card phases: a smoke figure, not the
-   metric, which a standalone bench run gives.  Then bench_kernels
-   in-process (every rate above 0, every share at most 1.05),
-   graft_entry.entry() on the card torch.equal to its forward on CPU
-   tensors (one K1 launch), and graft_entry.dryrun_multichip(2) on the
-   card (NCCL with two cards, else two gloo ranks sharing cuda:0), every
-   rank's launches of all five kernels above 0; its wall time.
+16. measuring modules: bench_kernels in-process (every rate above 0,
+   every share at most 1.05), graft_entry.entry() on the card
+   torch.equal to its forward on CPU tensors (one K1 launch), and
+   graft_entry.dryrun_multichip(2) on the card (NCCL with two cards,
+   else two gloo ranks sharing cuda:0), every rank's launches of all five
+   kernels above 0; its wall time.
 
 Every path from phase 4 on is driven with the kernels' launch counts set
 to 0 just before it and read just after; all must be above 0 (launches
 made to compare a kernel with its plain version are outside those windows),
 but for the intra streams of phase 10, which have no MC to launch, and
 the filter kernels, which launch exactly where the path filters on the
-card (every stream here turns both filters on; apply_filters=False and
-filters_on_device=False launch neither).  The
+card (every stream here turns both filters on; apply_filters=False
+launches neither).  The
 total wall time is printed before the kernels' record.
 Nothing of JAX and nothing of the JAX package p265_tpu may be imported.
 The line before the last is the kernels' JSON record; the last line is
@@ -724,50 +717,46 @@ def phase_frame_dag(fn: str, warm: int) -> dict:
     return out
 
 
-def phase_unfused() -> None:
-    """The unfused decoder and the per-stage entry points on the card."""
+def phase_stages() -> None:
+    """The decoder's options and the per-stage entry points on the card."""
     import torch
     from p265_tpu_torch.golden.decoder import GoldenDecoder
     from p265_tpu_torch.kernels.loopfilter import loop_filters_frames
     from p265_tpu_torch.pipeline.decoder import TorchDecoder
     from p265_tpu_torch.pipeline.wavefront import reconstruct_scan_frames
     from p265_tpu_torch.plan.frame_plan import attach_pred_planes
-    options = (dict(fused=False), dict(filters_on_device=False),
-               dict(apply_filters=False), dict(use_native_parse=False))
+    options = (dict(apply_filters=False), dict(use_native_parse=False))
     for structure, fn in SMALL[:2]:
         data = _stream_bytes(fn)
         gold = GoldenDecoder().decode_stream(data)
         unfiltered = GoldenDecoder(apply_filters=False).decode_stream(data)
         for kw in options:
             dec = TorchDecoder("cuda", **kw)
-            require(dec.fused == (kw == dict(use_native_parse=False)),
-                    f"{kw}: fused is {dec.fused}")
             frames, launches = _counted(
                 f"96x64 {structure} {kw}", lambda: dec.decode_stream(data),
-                filters=dec.apply_filters and dec.filters_on_device)
-            _bit_exact(frames,
-                       gold if kw.get("apply_filters", True) else unfiltered,
+                filters=dec.apply_filters)
+            _bit_exact(frames, gold if dec.apply_filters else unfiltered,
                        f"96x64 {structure} TorchDecoder {kw}")
             log(f"96x64 {structure} TorchDecoder(cuda, {kw}): bit-exact vs "
                 f"golden, launches {launches}")
 
-        # per-stage entry points against the fused decoder's planes
+        # per-stage entry points against the decoder's planes
         dec = TorchDecoder("cuda")
-        fused = dec.decode_stream(data)
-        _bit_exact(fused, gold, f"96x64 {structure} fused")
+        decoded = dec.decode_stream(data)
+        _bit_exact(decoded, gold, f"96x64 {structure} TorchDecoder")
 
         def stages():
             tplans = []
-            for f in fused:
+            for f in decoded:
                 tp = dec._build_tplan(f.plan)
-                attach_pred_planes(tp, {o.poc: o.planes for o in fused
+                attach_pred_planes(tp, {o.poc: o.planes for o in decoded
                                         if o.poc != f.poc}, "cuda")
                 tplans.append(tp)
             pre = reconstruct_scan_frames(tplans, "cuda")
-            return pre, loop_filters_frames([f.plan for f in fused], pre,
-                                            "cuda")
+            return pre, loop_filters_frames([f.plan for f in decoded],
+                                            pre, "cuda")
         (pre, filt), launches = _counted(f"96x64 {structure} stages", stages)
-        for f, p, q in zip(fused, pre, filt):
+        for f, p, q in zip(decoded, pre, filt):
             for c in range(3):
                 require(p[c].is_cuda and q[c].is_cuda, "a plane left cuda")
                 require(torch.equal(p[c], f.prefilter[c].to(torch.int32)),
@@ -775,7 +764,7 @@ def phase_unfused() -> None:
                 require(np.array_equal(q[c].cpu().numpy(), f.planes[c]),
                         f"loop_filters_frames poc {f.poc} plane {c}")
         log(f"96x64 {structure}: reconstruct_scan_frames + "
-            f"loop_filters_frames == fused decoder, launches {launches}")
+            f"loop_filters_frames == TorchDecoder, launches {launches}")
 
 
 def _two_gops() -> tuple:
@@ -933,7 +922,7 @@ def phase_1080(jobs: dict) -> tuple:
 
 def start_goldens(tmp: str) -> tuple:
     """The port's GoldenDecoder on CONFIG5_STREAM (the longest, phase 13),
-    s1080_ldp4 (phases 9 and 16), then on every STREAMS stream, the
+    s1080_ldp4 (phase 9), then on every STREAMS stream, the
     longest first, in GOLDEN_WORKERS spawned processes; -> (pool, {name:
     AsyncResult of run_config.save_golden, which writes
     tmp/<name>.npz})."""
@@ -1538,44 +1527,15 @@ def phase_upload() -> None:
         + lines[0])
 
 
-def phase_measuring(golden_dir: str) -> None:
-    """The port's measuring modules on the card: the bench as a
-    subprocess (exactly one stdout line, JSON with the four keys, value >
-    0, exit 0; its golden planes and seconds read from the workers' files
-    in golden_dir), the kernel rates, the graft entry against its CPU
-    forward, and the sharded dry run over two ranks."""
+def phase_measuring() -> None:
+    """The port's measuring modules on the card: the kernel rates, the
+    graft entry against its CPU forward, and the sharded dry run over two
+    ranks."""
     import torch
     from p265_tpu_torch import bench_kernels, graft_entry
     from p265_tpu_torch.kernels import _build
     from p265_tpu_torch.roofline import MAX_SHARE
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "p265_tpu_torch.bench",
-                        "--golden", golden_dir], cwd=ROOT,
-                       capture_output=True, text=True, timeout=900)
-    for line in r.stderr.splitlines():
-        log("  bench stderr:", line)
-    require(r.returncode == 0, f"bench exited {r.returncode}")
-    lines = r.stdout.splitlines()
-    require(len(lines) == 1, f"bench printed {len(lines)} stdout lines")
-    rec = json.loads(lines[0])
-    require(list(rec) == ["metric", "value", "unit", "vs_baseline"]
-            and rec["value"] > 0, f"bench line {rec}")
-    # the bench's records; torch's own warnings on stderr are not JSON
-    err = [json.loads(line) for line in r.stderr.splitlines()
-           if line.startswith("{")]
-    passes = [e for e in err if "pass" in e]
-    want = {k: v[2] for k, v in KERNELS.items()}
-    require(len(passes) == 4 and all(p["launches"] == want for p in passes),
-            f"bench passes' launches {[p['launches'] for p in passes]}, "
-            f"expected 4 passes of {want}")
-    steady = [e["steady"] for e in err if "steady" in e]
-    want16 = dict(zip(KERNELS, STREAMS["s1080_ldp16"]))
-    require(len(steady) == 1 and steady[0]["launches"] == want16,
-            f"bench steady row {steady}, expected launches {want16}")
-    log(f"bench: {lines[0]} ({time.perf_counter() - t0:.2f} s; its "
-        "vs_baseline is a smoke figure: the golden seconds come from a "
-        "worker that shared the host)")
-
     rows = bench_kernels.run("cuda")
     for row in rows:
         log("  bench_kernels:", json.dumps(row))
@@ -1619,7 +1579,7 @@ def main() -> int:
             phase_compare(errs)
             phase_small_streams()
             phase_frame_dag(SMALL[1][1], warm=0)
-            phase_unfused()
+            phase_stages()
             phase_options()
             phase_cli()
             launches, gold_planes, steps = phase_1080(jobs)
@@ -1632,7 +1592,7 @@ def main() -> int:
             pool.join()
         rows = phase_timing(launches, sharded, dag, errs, kind)
         phase_upload()
-        phase_measuring(tmp)
+        phase_measuring()
     log(f"chip_smoke: total wall time {time.perf_counter() - t_start:.1f} s")
     require("jax" not in sys.modules, "jax was imported")
     ref = sorted(m for m in sys.modules

@@ -45,7 +45,7 @@ from p265_tpu_torch.spans import span
 
 
 def build_batch(tplans: list, plans: list, mc: list | None = None,
-                stats: dict | None = None) -> dict:
+                stats: dict | None = None, filters: bool = True) -> dict:
     """Host: F frame plans of one resolution -> the batch's arrays.
 
     mc: optional per-frame list of kernels.mc.mc_arrays dicts; each
@@ -58,7 +58,9 @@ def build_batch(tplans: list, plans: list, mc: list | None = None,
     "mc", "pcm" (flat indices into the tall plane and samples of every PCM
     TU, or None) and "attached" (the PlanePlans and their segment offsets,
     for their inter_pred).  stats: optional dict accumulating pack_s
-    and pack_cpu_s (spans.span)."""
+    and pack_cpu_s (spans.span).  filters=False packs no filter stage and
+    no bypass mask: filter_planes then only casts the prefilter planes to
+    uint8."""
     with span(stats, "pack"):
         F = len(tplans)
         sps = plans[0].sps
@@ -69,8 +71,13 @@ def build_batch(tplans: list, plans: list, mc: list | None = None,
                 + [tp.planes[2] for tp in tplans])
         merged = merge_segments(pps_)
         itu = hoist_inter(merged)
-        fp = pack_filter_params(plans)
-        deblock_on, sao_luma, sao_chroma = filter_flags(plans[0])
+        if filters:
+            fp = pack_filter_params(plans)
+            deblock_on, sao_luma, sao_chroma = filter_flags(plans[0])
+        else:
+            fp = pack_filter_params(plans, flags=(False, False, False),
+                                    masks=False)
+            deblock_on = sao_luma = sao_chroma = False
 
         seg_h, seg_hc = H + GUARD, Hc + GUARD
         stamps = [st for f, p in enumerate(plans) if (st := pcm_samples(
@@ -120,24 +127,16 @@ def decode_batch_planes(batch: dict, refs, device,
         # 1. MC prediction planes at each frame's segment offsets: one MC
         #    launch per frame writes the frame's samples straight into the
         #    tall plane; has_bi comes from the host arrays, so no sync;
-        #    then the PCM samples, one scatter over them.  MC owns its
-        #    frames' segments: where an attached prediction lies under
-        #    them (no decoder path attaches one to a frame with device
-        #    MC), they are zeroed first
+        #    then the PCM samples, one scatter over them
         pred = attached_pred(*batch["attached"], shape, device)
-        attached = pred is not None
         if pred is None and (dev["mc"] is not None
                              or dev["pcm"] is not None):
             pred = torch.zeros(shape, dtype=torch.int32, device=device)
         if dev["mc"] is not None:
             shapes = ((H, W), (Hc, Wc), (Hc, Wc))
             for f, (fmc, rf) in enumerate(zip(dev["mc"], refs)):
-                offs = segment_rows(F, f, seg_h, seg_hc)
-                if attached:
-                    for oy, (h, w) in zip(offs, shapes):
-                        pred[oy:oy + h, :w] = 0
                 mc_pred_planes(rf, fmc, shapes, uses_l1(batch["mc"][f]),
-                               out=(pred, offs))
+                               out=(pred, segment_rows(F, f, seg_h, seg_hc)))
         if dev["pcm"] is not None:
             idx, val = dev["pcm"]
             pred.view(-1)[idx] = val

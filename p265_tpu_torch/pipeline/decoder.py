@@ -15,14 +15,12 @@ import time
 import numpy as np
 import torch
 
-from p265_tpu_torch.golden.decoder import DecoderBase, apply_loop_filters
-from p265_tpu_torch.kernels.loopfilter import filter_flags, loop_filters
+from p265_tpu_torch.golden.decoder import DecoderBase
+from p265_tpu_torch.kernels.loopfilter import filter_flags
 from p265_tpu_torch.kernels.mc import mc_arrays, ref_stacks
 from p265_tpu_torch.pipeline.batch_decode import (build_batch,
                                                   decode_batch_planes)
-from p265_tpu_torch.pipeline.wavefront import reconstruct_scan
-from p265_tpu_torch.plan.frame_plan import (attach_pred_planes,
-                                            build_tensor_plan)
+from p265_tpu_torch.plan.frame_plan import build_tensor_plan
 from p265_tpu_torch.spans import span
 
 # the spans of TorchDecoder.stats (spans.py), by the one thread that
@@ -43,13 +41,6 @@ SPANS = ("finalize", "tensor_plan", "mc_pack", "ref_stack", "pack", "upload",
 COUNTERS = ("replay_pus", "replay_bi_pus", "tmvp_pictures", "mc_blocks",
             "mc_bi_blocks", "ref_pictures", "ref_stack_bytes",
             "mc_table_pictures")
-
-
-def slabs_from_numpy(planes, device) -> list:
-    """[y, cb, cr] sample planes (numpy, any integer type, values 0..255)
-    -> the port's DPB slabs: uint8 tensors on `device`."""
-    return [torch.from_numpy(np.ascontiguousarray(p, dtype=np.uint8)).to(
-        device) for p in planes]
 
 
 def _batchable(plan) -> bool:
@@ -97,17 +88,16 @@ class TorchDecoder(DecoderBase):
     machine without a CUDA card the default device fails in torch at the
     first decode, with no fallback: ask for "cpu" there.
 
-    The options have TpuDecoder's meaning.  fused (default): one
-    batch_decode pass per picture does reconstruction and filters.
-    fused=False: `_reconstruct` (pipeline/wavefront reconstruct_scan, MC
-    through attach_pred_planes) and then `_filters`: loop_filters on the
-    device, or with filters_on_device=False the golden apply_loop_filters
-    on the host.  apply_filters=False returns the prefilter planes (and
-    implies the unfused path, as does filters_on_device=False).
+    Every picture, and every frame-DAG group, is reconstructed by one
+    batch_decode pass (`_dispatch_group`).  The options have TpuDecoder's
+    meaning.  apply_filters=False returns the prefilter planes: the batch
+    is packed with no filter stage, so no deblocking or SAO kernel runs.
     use_native_parse=False takes the Python CTU parse instead of the C one.
     frame_dag_max > 1 batches up to that many mutually independent inter
-    pictures into one pass (plan_frame_groups; fused path only).  It is 1
-    by default.
+    pictures into one pass (plan_frame_groups).  It is 1 by default.
+    filters_on_device is accepted as True only, the value that the
+    benchmark's configurations (decode_bench/configs) pass: the filters
+    run on `device`, and the host filters have no path here.
 
     TpuDecoder's use_mxu, shape_policy and calibrate_frames have no
     counterpart: the port has one exact intra route and runs exact shapes
@@ -121,9 +111,12 @@ class TorchDecoder(DecoderBase):
     """
 
     def __init__(self, device="cuda", apply_filters: bool = True,
-                 filters_on_device: bool = True,
-                 use_native_parse: bool = True, fused: bool = True,
-                 frame_dag_max: int = 1, error_resilient: bool = False):
+                 use_native_parse: bool = True, frame_dag_max: int = 1,
+                 error_resilient: bool = False, *,
+                 filters_on_device: bool = True):
+        if filters_on_device is not True:
+            raise TypeError("TorchDecoder: the loop filters run on the "
+                            "decoder's device only (filters_on_device=True)")
         super().__init__(apply_filters=apply_filters,
                          error_resilient=error_resilient,
                          use_native_parse=use_native_parse)
@@ -131,9 +124,7 @@ class TorchDecoder(DecoderBase):
         # the intra A-table product (kernels/intra.py) is exact only in
         # full float32: TF32 would round the 8-bit reference samples
         torch.backends.cuda.matmul.allow_tf32 = False
-        self.filters_on_device = filters_on_device
-        self.fused = fused and apply_filters and filters_on_device
-        self.frame_dag_max = frame_dag_max if self.fused else 1
+        self.frame_dag_max = frame_dag_max
         self._open: list = []       # the open frame-DAG group
         # every key exists before the first picture, and each is written
         # by one thread only; queue_wait_s (the recon worker's) sums each
@@ -218,8 +209,8 @@ class TorchDecoder(DecoderBase):
 
     # -- reconstruction ------------------------------------------------------
     def _dispatch_group(self, tasks: list) -> None:
-        """Fused path: pack + enqueue the device work of F pictures as ONE
-        batch; fills each pic.planes (device slabs) and frame.prefilter.
+        """Pack + enqueue the device work of F pictures as ONE batch; fills
+        each pic.planes (device slabs) and frame.prefilter.
         Every picture keeps its own reference stacks and MC block arrays;
         the merged tall plane carries all 3F segments through one scan and
         one filter pass."""
@@ -248,70 +239,31 @@ class TorchDecoder(DecoderBase):
             st["ref_stack_bytes"] += sum(s.nbytes for r in refs for s in r)
             st["mc_table_pictures"] += sum(
                 getattr(p.pus, "table", None) is not None for p in plans)
-        batch = build_batch(tplans, plans, mc=mc, stats=self.stats)
+        batch = build_batch(tplans, plans, mc=mc, stats=self.stats,
+                            filters=self.apply_filters)
         pl, pc, fl, fc = decode_batch_planes(batch, refs, self.device,
                                              stats=self.stats)
         for f, t in enumerate(tasks):
             t["pic"].planes = [fl[f], fc[f], fc[F + f]]
             t["frame"].prefilter = [pl[f], pc[f], pc[F + f]]
 
-    def _reconstruct(self, plan, refs: dict, tplan=None) -> list:
-        """Unfused path: the picture's prefilter planes, int32 tensors on
-        the device (MC through K2, residuals through K1, one merged
-        scan)."""
-        if tplan is None:
-            tplan = self._build_tplan(plan)
-        attach_pred_planes(tplan, refs, self.device)
-        return reconstruct_scan(tplan, self.device)
-
-    def _filters(self, plan, planes: list) -> list:
-        """Unfused path: prefilter planes (device tensors) -> filtered
-        planes (device tensors, or host arrays from the host filters)."""
-        if self.filters_on_device:
-            return loop_filters(plan, planes, self.device)
-        return apply_loop_filters(plan, [p.cpu().numpy() for p in planes])
-
-    def _dispatch_unfused(self, task: dict) -> float:
-        """Per-stage path of one picture; returns the filters' seconds."""
-        plan, frame, pic = task["plan"], task["frame"], task["pic"]
-        refs = {p: r.planes for p, r in task["refs"].items()}
-        planes = prefilter = self._reconstruct(plan, refs,
-                                               tplan=task.get("tplan"))
-        t0 = time.perf_counter()
-        if self.apply_filters:
-            planes = self._filters(plan, prefilter)
-        frame.prefilter = prefilter
-        if isinstance(planes[0], torch.Tensor):
-            pic.planes = [p.to(torch.uint8) for p in planes]
-        else:
-            pic.planes = slabs_from_numpy(planes, self.device)
-        return time.perf_counter() - t0
-
     def _run_recon(self, task: dict) -> None:
-        t0 = time.perf_counter()
-        filter_s = 0.0
-        if self.fused:
-            self._dispatch_group([task])
-        else:
-            filter_s = self._dispatch_unfused(task)
-        self.stats["filter_s"] += filter_s
-        self.stats["recon_s"] += time.perf_counter() - t0 - filter_s
-        self._fetch(task)
+        """DecoderBase's hook: a group of one."""
+        self._run_recon_group([task])
 
     def _run_recon_group(self, tasks: list) -> None:
-        """Frame-DAG batch: F mutually independent inter pictures in ONE
-        pass (plan_frame_groups); a group of one is a plain _run_recon."""
-        if len(tasks) == 1 or not self.fused:
-            for t in tasks:
-                self._run_recon(t)
-            return
+        """A frame-DAG group (plan_frame_groups; one picture where nothing
+        batches) in ONE pass, then each picture's fetch; recon_s times the
+        pack and dispatch, and a group of two or more counts its pictures
+        in dag_batched."""
         t0 = time.perf_counter()
         self._dispatch_group(tasks)
         self.stats["recon_s"] += time.perf_counter() - t0
         for t in tasks:
             self._fetch(t)
-        self.stats["dag_batched"] = (self.stats.get("dag_batched", 0)
-                                     + len(tasks))
+        if len(tasks) > 1:
+            self.stats["dag_batched"] = (self.stats.get("dag_batched", 0)
+                                         + len(tasks))
 
     def _fetch(self, task: dict) -> None:
         """The picture's output planes to the host (frame.planes)."""

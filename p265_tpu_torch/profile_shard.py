@@ -372,10 +372,10 @@ def main(argv=None) -> None:
         data = f.read()
 
     class Timed(TorchDecoder):
-        def _run_recon(self, task):
+        def _run_recon_group(self, tasks):
             t0 = time.perf_counter()
-            super()._run_recon(task)
-            self.pictures.append(dict(poc=task["plan"].poc,
+            super()._run_recon_group(tasks)
+            self.pictures.append(dict(poc=tasks[0]["plan"].poc,
                                       seconds=time.perf_counter() - t0))
 
     for _ in range(2):   # a warm-up pass, then the timed one

@@ -28,7 +28,7 @@ copies (device ms of each, beside the pass's staging copies and bytes)
 and the calls of the casts and selects (aten::_to_copy, aten::where) on
 every thread; then a serial
 TorchDecoder pass under torch.profiler gives each stage's device time
-(bench.stage_profile).  `run()` returns all of it as one record (report() prints it).
+(stage_profile).  `run()` returns all of it as one record (report() prints it).
 """
 from __future__ import annotations
 
@@ -285,6 +285,81 @@ def profile_pass(data: bytes, device: str) -> dict:
                 other_ops=sum(r[1] for r in glue), other=glue)
 
 
+# stage -> the functions whose device work is the stage's, (module, name)
+STAGE_FUNCTIONS = {
+    "mc": (("p265_tpu_torch.pipeline.batch_decode", "mc_pred_planes"),),
+    "residual": (("p265_tpu_torch.kernels.itransform",
+                  "batch_residual_grouped"),),
+    "scan": (("p265_tpu_torch.pipeline.wavefront", "scan_plane"),),
+    "deblock": (("p265_tpu_torch.kernels.loopfilter", "deblock_planes"),),
+    "sao": (("p265_tpu_torch.kernels.loopfilter", "sao_apply"),),
+    "fetch": (("p265_tpu_torch.pipeline.decoder", "fetch_planes"),),
+}
+
+
+def busy_in_spans(spans: list, work: list) -> tuple:
+    """spans [(stage, start, end)] and work [(start, end)], intervals on
+    one device timeline -> ({stage: summed length of the work intervals
+    inside its spans}, {stage: summed length of its spans})."""
+    busy, total = {}, {}
+    for stage, s0, s1 in spans:
+        total[stage] = total.get(stage, 0) + s1 - s0
+        busy[stage] = busy.get(stage, 0) + sum(
+            w1 - w0 for w0, w1 in work if s0 <= w0 and w1 <= s1)
+    return busy, total
+
+
+def stage_profile(data: bytes, device: str) -> tuple:
+    """One serial TorchDecoder pass under torch.profiler, each stage's
+    functions (STAGE_FUNCTIONS) inside a record_function range named after
+    the stage.  -> ({stage: device ms of the kernels and copies inside its
+    ranges' spans}, {stage: ms of those spans}).  A range's span is its
+    device-side annotation, from the first to the last of the device work
+    it launched, gaps included; on the one stream of the serial decoder no
+    other stage's work falls inside it.  (The CPU range's own device time
+    misses the kernels launched through ctypes.)"""
+    import importlib
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from p265_tpu_torch.pipeline.decoder import TorchDecoder
+
+    def ranged(stage, fn):
+        def f(*a, **k):
+            with record_function(f"stage:{stage}"):
+                return fn(*a, **k)
+        return f
+
+    saved = []
+    for stage, fns in STAGE_FUNCTIONS.items():
+        for mod, name in fns:
+            m = importlib.import_module(mod)
+            saved.append((m, name, getattr(m, name)))
+            setattr(m, name, ranged(stage, getattr(m, name)))
+    try:
+        torch.cuda.synchronize(device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            TorchDecoder(device).decode_stream(data)
+            torch.cuda.synchronize(device)
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+    spans, work = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = (e.time_range.start, e.time_range.end)
+        if e.key.startswith("stage:"):
+            spans.append((e.key[6:], *t))
+        elif not e.is_user_annotation:
+            work.append(t)
+    busy, span = busy_in_spans(spans, work)
+    return ({st: busy.get(st, 0) / 1e3 for st in STAGE_FUNCTIONS},
+            {st: span.get(st, 0) / 1e3 for st in STAGE_FUNCTIONS})
+
+
 def turns(dags: tuple, n_warm: int) -> list:
     """The passes' frame_dag_max values: a cold pass at each, then
     `n_warm` warm passes at each, in turns (1, 4, 4, 1, ...)."""
@@ -305,15 +380,15 @@ def summary(passes: list, frames: int) -> dict:
 
 
 def run(name: str, n_warm: int = 2, device: str = "cuda",
-        profile: bool = False, gold: tuple | None = None,
-        md5: bool = False, dags: tuple = (1,)) -> dict:
-    """run_config's work on stream `name`: golden (decoded here, or `gold`:
-    (golden frames, their decode seconds); with `md5` the committed golden
-    MD5s of data/GOLDEN_MD5 instead), for each frame_dag_max of `dags` one
-    cold pass and `n_warm` warm passes, in turns (decode_pass after
-    gc.collect(), each gated against golden; a difference raises), the
-    parse alone with and without lanes on a stream with tiles or WPP, and
-    where `profile` a pass under torch.profiler.  -> the record: the
+        profile: bool = False, md5: bool = False,
+        dags: tuple = (1,)) -> dict:
+    """run_config's work on stream `name`: golden (decoded here; with `md5`
+    the committed golden MD5s of data/GOLDEN_MD5 instead), for each
+    frame_dag_max of `dags` one cold pass and `n_warm` warm passes, in
+    turns (decode_pass after gc.collect(), each gated against golden; a
+    difference raises), the parse alone with and without lanes on a
+    stream with tiles or WPP, and where `profile` a pass under
+    torch.profiler.  -> the record: the
     stream's info, golden_s (None with md5), per pass its decode_pass
     record with the frames counted; with warm passes warm_s, fps (best
     warm pass), spread and median of dags[0], and with several dags each
@@ -330,10 +405,9 @@ def run(name: str, n_warm: int = 2, device: str = "cuda",
         def check(frames, what):
             check_md5(frames, expected, what)
     else:
-        if gold is None:
-            t0 = time.perf_counter()
-            gold = golden_frames(data), time.perf_counter() - t0
-        gold_frames, golden_s = gold
+        t0 = time.perf_counter()
+        gold_frames = golden_frames(data)
+        golden_s = time.perf_counter() - t0
         n_frames = len(gold_frames)
 
         def check(frames, what):
@@ -451,11 +525,10 @@ def main(argv=None) -> int:
               md5=args.md5, dags=dags)
     report(rec)
     if args.profile:
-        from p265_tpu_torch.bench import stage_profile
         from p265_tpu_torch.testgen.streams import get_stream
         busy, _ = stage_profile(get_stream(args.name), args.device)
         log(f"{args.name}, serial TorchDecoder pass under torch.profiler: "
-            "device ms of each stage's functions (bench.STAGE_FUNCTIONS) "
+            "device ms of each stage's functions (STAGE_FUNCTIONS) "
             + ", ".join(f"{k} {v:.4f}" for k, v in busy.items()))
     return 0
 

@@ -8,8 +8,8 @@ four outputs of
 decode_batch_planes against the JAX decode_batch_planes, for a 2-frame
 intra batch, for intra pictures with lossless CUs (bypass masks: SAO's
 store restores their samples) and for a fused-MC P picture whose
-reference slabs come from slabs_from_numpy (the hoisted inter TUs through
-K1's plane epilogue).  Bit-exact.
+reference stacks are the golden planes as uint8 (the hoisted inter TUs
+through K1's plane epilogue).  Bit-exact.
 """
 import dataclasses
 
@@ -29,7 +29,6 @@ from p265_tpu.testgen.encoder import (Encoder, IntraEncoder,
                                       make_moving_sequence, make_test_image)
 from p265_tpu_torch.kernels import mc
 from p265_tpu_torch.pipeline import batch_decode as bd
-from p265_tpu_torch.pipeline.decoder import slabs_from_numpy
 from p265_tpu_torch.pipeline import wavefront as wf
 from p265_tpu_torch.pipeline.wavefront import SCAN_FIELDS
 from p265_tpu_torch.testgen.scan_cases import coord_plane
@@ -216,9 +215,8 @@ def test_decode_batch_planes_fused_mc_matches_jax(p_picture):
                            for p in pocs) for c in range(3))
     want = jbd.decode_batch_planes([d["tplan"]], [plan], mc=[d["mc_jax"]],
                                    refs=(refs_jax,))
-    slabs = {p: slabs_from_numpy(by_poc[p], "cpu") for p in pocs}
-    stacks = tuple(torch.stack([slabs[p][c] for p in pocs])
-                   for c in range(3))
+    stacks = tuple(torch.from_numpy(np.stack(
+        [by_poc[p][c] for p in pocs]).astype(np.uint8)) for c in range(3))
     batch = bd.build_batch([d["tplan"]], [plan], mc=[d["mc"]])
     got = bd.decode_batch_planes(batch, [stacks], "cpu")
     _compare_outputs(got, want)

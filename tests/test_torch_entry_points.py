@@ -6,8 +6,8 @@ decode_batch, loop_filters / loop_filters_frames / deblock / sao
 (predict_batch and predict_batch_mxu): the same inputs, made from numpy
 seeds (random arrays, or golden decodes of streams the seeded test encoder
 makes), go through both packages on the CPU; tolerance zero.  Then the
-TorchDecoder option matrix (fused, filters_on_device, apply_filters,
-use_native_parse) against golden on one I and one LDP stream, for both
+TorchDecoder option matrix (apply_filters, use_native_parse,
+frame_dag_max) against golden on an I, an LDP and an RA stream, for both
 torch decoders.
 """
 import functools
@@ -34,6 +34,7 @@ from p265_tpu_torch.pipeline.decoder import TorchDecoder
 from p265_tpu_torch.testgen.encoder import (Encoder, IntraEncoder,
                                             make_moving_sequence,
                                             make_test_image)
+from p265_tpu_torch.testgen.streams import get_stream
 
 
 def _intra_stream(w, h, seed, qp=30, sps_kw=None, pps_kw=None):
@@ -55,6 +56,8 @@ def _stream(name):
     if name == "pcm":
         return _intra_stream(96, 64, 4, sps_kw=dict(
             pcm_enabled=True, pcm_loop_filter_disabled=True))
+    if name == "RA":
+        return get_stream("s96x64_ra5")
     assert name == "LDP"
     sps = SPS(pic_width=96, pic_height=64, temporal_mvp_enabled=True)
     pps = PPS(init_qp=33, sign_data_hiding=True)
@@ -63,8 +66,8 @@ def _stream(name):
 
 
 @functools.lru_cache(maxsize=None)
-def _golden(name):
-    return GoldenDecoder().decode_stream(_stream(name))
+def _golden(name, filters=True):
+    return GoldenDecoder(apply_filters=filters).decode_stream(_stream(name))
 
 
 def _same(got, want):
@@ -230,25 +233,35 @@ def test_predict_batch_matches_both_jax_routes(size, c_idx):
 
 OPTIONS = {
     "default": {},
-    "unfused": dict(fused=False),
-    "host_filters": dict(filters_on_device=False),
-    "unfused_host_filters": dict(fused=False, filters_on_device=False),
     "no_filters": dict(apply_filters=False),
     "python_parse": dict(use_native_parse=False),
-    "python_parse_unfused": dict(use_native_parse=False, fused=False),
+    "python_parse_no_filters": dict(use_native_parse=False,
+                                    apply_filters=False),
+    "dag4": dict(frame_dag_max=4),
+    "dag4_no_filters": dict(frame_dag_max=4, apply_filters=False),
 }
 
 
 @pytest.mark.parametrize("cls", [TorchDecoder, PipelinedTorchDecoder])
 @pytest.mark.parametrize("opts", sorted(OPTIONS))
-@pytest.mark.parametrize("name", ["I", "LDP"])
-def test_decoder_options_match_golden(name, opts, cls):
+@pytest.mark.parametrize("name", ["I", "LDP", "RA"])
+def test_decoder_options_match_golden(name, opts, cls, monkeypatch):
+    """Every option set through the one batch path: bit-exact against
+    golden (unfiltered where the filters are off), which then calls no
+    deblocking or SAO; the RA stream's B siblings batch at 4."""
     kw = OPTIONS[opts]
-    gold = _golden(name)
-    if not kw.get("apply_filters", True):
-        gold = GoldenDecoder(apply_filters=False).decode_stream(_stream(name))
+    filters = kw.get("apply_filters", True)
+    gold = _golden(name, filters)
+    calls = []
+
+    def spy(fn):
+        def counted(*a, **k):
+            calls.append(fn.__name__)
+            return fn(*a, **k)
+        return counted
+    for fn in ("deblock_planes", "sao_apply"):
+        monkeypatch.setattr(lf, fn, spy(getattr(lf, fn)))
     dec = cls("cpu", **kw)
-    assert dec.fused == (opts in ("default", "python_parse"))
     frames = dec.decode_stream(_stream(name))
     assert [f.poc for f in frames] == [g.poc for g in gold]
     native = [getattr(f.plan, "nstate", None) is not None for f in frames]
@@ -259,14 +272,15 @@ def test_decoder_options_match_golden(name, opts, cls):
             assert np.array_equal(f.planes[c], g.planes[c]), (f.poc, c)
             assert np.array_equal(f.prefilter[c].cpu().numpy(),
                                   g.prefilter[c]), (f.poc, c)
-    if not dec.fused:
-        assert dec.stats["pack_s"] == 0
-    else:
-        assert dec.stats["pack_s"] > 0 and dec.stats["dispatch_s"] > 0
+    assert dec.stats["pack_s"] > 0 and dec.stats["dispatch_s"] > 0
+    assert bool(calls) == filters, calls
+    if name == "RA" and kw.get("frame_dag_max") == 4:
+        assert dec.stats.get("dag_batched", 0) >= 2
 
 
 def test_reference_only_options_are_refused():
     for kw in (dict(use_mxu=True), dict(shape_policy=None),
-               dict(calibrate_frames=8)):
+               dict(calibrate_frames=8), dict(fused=True),
+               dict(fused=False), dict(filters_on_device=False)):
         with pytest.raises(TypeError):
             TorchDecoder("cpu", **kw)

@@ -6,7 +6,9 @@ PipelinedTorchDecoder on a 192x128 random-access stream of 8 frames: the
 port's plan_frame_groups gives the groups of the JAX package's on the same
 task list; frame_dag_max=4 is bit-exact against golden and against
 TpuDecoder(frame_dag_max=4); frame_dag_max=1 gives the same planes and no
-dag_batched; the pipelined decoder forms the same groups on every run.
+dag_batched; with the loop filters off the siblings still batch and
+equal the unfiltered golden decode; the pipelined decoder forms the same
+groups on every run.
 And build_batch / decode_batch_planes at F = 2 with per-frame MC against
 the JAX decode_batch_planes on the same inputs.  Tolerance zero.
 """
@@ -28,8 +30,7 @@ from p265_tpu_torch.hls.params import PPS, SPS
 from p265_tpu_torch.kernels import mc
 from p265_tpu_torch.pipeline import batch_decode as bd
 from p265_tpu_torch.pipeline.async_decoder import PipelinedTorchDecoder
-from p265_tpu_torch.pipeline.decoder import (TorchDecoder, plan_frame_groups,
-                                             slabs_from_numpy)
+from p265_tpu_torch.pipeline.decoder import TorchDecoder, plan_frame_groups
 from p265_tpu_torch.testgen.encoder import Encoder, make_moving_sequence
 
 DECODERS = [TorchDecoder, PipelinedTorchDecoder]
@@ -138,9 +139,19 @@ def test_batched_equals_unbatched(cls):
             assert np.array_equal(fa.planes[c], fb.planes[c]), (fa.poc, c)
 
 
-def test_unfused_decoder_does_not_batch():
-    d = TorchDecoder("cpu", fused=False, frame_dag_max=4)
-    assert d.frame_dag_max == 1
+def test_filters_off_decoder_batches():
+    """apply_filters=False at frame_dag_max 4: the siblings still share
+    one pass, and every plane equals the unfiltered golden decode."""
+    gold = GoldenDecoder(apply_filters=False).decode_stream(_ra_stream())
+    d = PipelinedTorchDecoder("cpu", apply_filters=False, frame_dag_max=4)
+    out = d.decode_stream(_ra_stream())
+    assert d.stats.get("dag_batched", 0) >= 2
+    assert [f.poc for f in out] == [g.poc for g in gold]
+    for f, g in zip(out, gold):
+        for c in range(3):
+            assert np.array_equal(f.planes[c], g.planes[c]), (f.poc, c)
+            assert np.array_equal(f.prefilter[c].numpy(),
+                                  g.prefilter[c]), (f.poc, c)
 
 
 def test_pipelined_groups_are_the_same_on_every_run():
@@ -182,9 +193,9 @@ def test_decode_batch_planes_two_frames_with_mc_matches_jax():
         mc_port.append(mc.mc_arrays_padded(plan, pidx, cnt))
         mc_jax.append(jmc.mc_arrays_padded(
             plan, pidx, {k: pol.mc_rows(k, n) for k, n in cnt.items()}))
-        slabs = {p: slabs_from_numpy(by_poc[p].planes, "cpu") for p in pocs}
-        stacks.append(tuple(torch.stack([slabs[p][c] for p in pocs])
-                            for c in range(3)))
+        stacks.append(tuple(torch.from_numpy(np.stack(
+            [by_poc[p].planes[c] for p in pocs]).astype(np.uint8))
+            for c in range(3)))
         padded = pocs + [pocs[0]] * (pol.refs_cap(len(pocs)) - len(pocs))
         refs_jax.append(tuple(
             tuple(jnp.asarray(by_poc[p].planes[c].astype(np.uint8))

@@ -2,14 +2,14 @@
 
 A fresh interpreter imports every p265_tpu_torch module (the sharded
 paths of p265_tpu_torch.shard, the test encoder, the stream set, run_config,
-the CLI and the measuring modules roofline, bench, bench_kernels and
-graft_entry among them), loads the per-stage entry points and decodes the
-committed 96x64 LDP stream on CPU tensors (fused, unfused and with
-frame-DAG batching) against the port's own golden decoder, through
-run_config's gate too, and reads a committed stream of the stream set; a
-second one runs every CLI subcommand; a third runs the measuring modules
-(the roofline's census, the bench's one line, the kernel rates, the graft
-entry's forward) on CPU tensors; jax, jaxlib and ml_dtypes (on the
+the CLI and the measuring modules roofline, bench_kernels and graft_entry
+among them), loads the per-stage entry points and decodes the committed
+96x64 LDP stream on CPU tensors (filters on and off, and with frame-DAG
+batching) against the port's own golden decoder, through run_config's
+gate too, and reads a committed stream of the stream set; a second one
+runs every CLI subcommand; a third runs the measuring modules (the
+roofline's census, the kernel rates, the graft entry's forward) on CPU
+tensors; jax, jaxlib and ml_dtypes (on the
 GPU machine any of them would be an import crash) and every module of the
 JAX package p265_tpu must stay out of sys.modules.  Also: no source line of
 the package or of chip_smoke.py imports them, and chip_smoke.py exits
@@ -40,7 +40,7 @@ shard = {"p265_tpu_torch.shard." + m for m in ("mesh", "filters", "spatial",
 assert shard <= set(mods), sorted(shard - set(mods))
 new = {"p265_tpu_torch." + m for m in ("testgen.encoder", "golden.trace",
                                        "cli", "testgen.streams",
-                                       "run_config", "roofline", "bench",
+                                       "run_config", "roofline",
                                        "bench_kernels", "graft_entry")}
 assert new <= set(mods), sorted(new - set(mods))
 from p265_tpu_torch.kernels.intra import predict_batch
@@ -57,8 +57,9 @@ from p265_tpu_torch.run_config import gate
 from p265_tpu_torch.testgen.streams import get_stream, stream_info
 with open("p265_tpu_torch/data/s96x64_ldp5.265", "rb") as f:
     data = f.read()
-gold = GoldenDecoder().decode_stream(data)
-for kw in ({}, dict(fused=False), dict(frame_dag_max=4)):
+for kw in ({}, dict(apply_filters=False), dict(frame_dag_max=4)):
+    gold = GoldenDecoder(apply_filters=kw.get("apply_filters", True)
+                         ).decode_stream(data)
     got = PipelinedTorchDecoder("cpu", **kw).decode_stream(data)
     assert len(got) == len(gold) == 5
     for f, g in zip(got, gold):
@@ -101,21 +102,15 @@ ref = sorted(m for m in sys.modules
 print("REF", ",".join(ref) or "none", "JAX", ",".join(bad) or "none")
 """
 
-# the measuring modules: the roofline's census and work, the bench (its
-# one stdout line), the kernel rates and the graft entry's forward
+# the measuring modules: the roofline's census and work, the kernel
+# rates and the graft entry's forward
 _MEASURE_CHILD = r"""
-import contextlib, io, json, sys
-from p265_tpu_torch import bench, bench_kernels, graft_entry, roofline
+import sys
+from p265_tpu_torch import bench_kernels, graft_entry, roofline
 from p265_tpu_torch.testgen.streams import get_stream
 pics = roofline.census(get_stream("s96x64_ldp5"))
 w = roofline.work(pics)
 assert len(pics) == 5 and w["kernels"]["mc"].ops > 0
-buf = io.StringIO()
-with contextlib.redirect_stdout(buf):
-    assert bench.main(["--device", "cpu", "--stream", "s96x64_ldp5",
-                       "--warm", "1"]) == 0
-line = json.loads(buf.getvalue())
-assert line["value"] > 0, line
 assert len(bench_kernels.run("cpu", n_tu=16, n_blocks=16, reps=1)) == 5
 fwd, args = graft_entry.entry("cpu")
 assert fwd(*args).shape == (96, 64)
