@@ -33,9 +33,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from p265_tpu_torch import native
 from p265_tpu_torch.golden.decoder import bypass_pixel_masks
 from p265_tpu_torch.kernels import _build
 from p265_tpu_torch.kernels.staging import stage, widen
+from p265_tpu_torch.native import deblock as native_deblock
+from p265_tpu_torch.spans import span
 from p265_tpu_torch.syntax.ctu import SAO_BAND, SAO_EDGE
 from p265_tpu_torch.tables import BETA_TABLE, TC_TABLE, chroma_qp_from_luma
 
@@ -569,7 +572,43 @@ def filter_flags(plan) -> tuple:
             bool(plan.sps.sao_enabled and plan.sh.sao_chroma))
 
 
-def pack_filter_params(plans: list, flags=None, masks: bool = True) -> dict:
+def _edge_grids_numpy(plans: list) -> dict:
+    """The deblocking grids of F pictures by luma_edge_params and
+    chroma_edge_params, stacked."""
+    fp = {}
+    for vertical in (True, False):
+        lp = [luma_edge_params(p, vertical) for p in plans]
+        cp = [chroma_edge_params(p, vertical) for p in plans]
+        key = "v" if vertical else "h"
+        fp[f"bs_{key}"] = np.stack([x[0] for x in lp]).astype(np.int16)
+        fp[f"beta_{key}"] = np.stack([x[1] for x in lp]).astype(np.int16)
+        fp[f"tc_{key}"] = np.stack([x[2] for x in lp]).astype(np.int16)
+        fp[f"tcc_{key}"] = np.stack([x[0] for x in cp]
+                                    + [x[1] for x in cp]).astype(np.int16)
+    return fp
+
+
+def _edge_grids_c(plans: list) -> dict:
+    """The same grids by native/deblock.py: allocated once for the batch,
+    each picture's slices written by one C call (a picture of another
+    size than the first raises)."""
+    F, sps = len(plans), plans[0].sps
+    fp = {}
+    for key, (luma, chroma) in native_deblock.grid_shapes(
+            sps.pic_width, sps.pic_height).items():
+        for n in ("bs", "beta", "tc"):
+            fp[f"{n}_{key}"] = np.empty((F, *luma), np.int16)
+        fp[f"tcc_{key}"] = np.empty((2 * F, *chroma), np.int16)
+    for f, p in enumerate(plans):
+        native_deblock.edge_params(p, [
+            [fp[f"{n}_{key}"][f] for n in ("bs", "beta", "tc")]
+            + [fp[f"tcc_{key}"][f], fp[f"tcc_{key}"][F + f]]
+            for key in ("v", "h")])
+    return fp
+
+
+def pack_filter_params(plans: list, flags=None, masks: bool = True,
+                       stats: dict | None = None) -> dict:
     """Host: the filter arrays of F pictures of one resolution, stacked on
     a leading axis in the batch layout (luma: F; chroma: F cb, then F cr).
 
@@ -579,7 +618,14 @@ def pack_filter_params(plans: list, flags=None, masks: bool = True) -> dict:
     sao_{ty,cls,off}_{0,1}); mask_y/mask_c only when `masks` and a picture
     has bypass samples.  filter_planes runs exactly the stages it finds.
     The arrays travel at the reference's wire dtypes (its _build_batch):
-    the edge parameters int16, the SAO maps int8, the masks bool."""
+    the edge parameters int16, the SAO maps int8, the masks bool.
+
+    The deblocking grids come from one C call a picture (native/deblock.py)
+    wherever the native library loads, else from luma_edge_params and
+    chroma_edge_params; the two give the same arrays.  stats: optional
+    dict accumulating the span edge_params (edge_params_s and its _cpu_s,
+    the grids' derivation) and edge_params_c_pictures (the pictures whose
+    grids the C call wrote)."""
     if flags is None:
         sigs = {filter_flags(p) for p in plans}
         if len(sigs) != 1:
@@ -589,15 +635,13 @@ def pack_filter_params(plans: list, flags=None, masks: bool = True) -> dict:
     deblock_on, sao_luma, sao_chroma = flags
     fp = {}
     if deblock_on:
-        for vertical in (True, False):
-            lp = [luma_edge_params(p, vertical) for p in plans]
-            cp = [chroma_edge_params(p, vertical) for p in plans]
-            key = "v" if vertical else "h"
-            fp[f"bs_{key}"] = np.stack([x[0] for x in lp]).astype(np.int16)
-            fp[f"beta_{key}"] = np.stack([x[1] for x in lp]).astype(np.int16)
-            fp[f"tc_{key}"] = np.stack([x[2] for x in lp]).astype(np.int16)
-            fp[f"tcc_{key}"] = np.stack([x[0] for x in cp]
-                                        + [x[1] for x in cp]).astype(np.int16)
+        with span(stats, "edge_params"):
+            in_c = native.available()
+            fp.update(_edge_grids_c(plans) if in_c
+                      else _edge_grids_numpy(plans))
+        if in_c and stats is not None:
+            stats["edge_params_c_pictures"] = (
+                stats.get("edge_params_c_pictures", 0) + len(plans))
     for c, on in ((0, sao_luma), (1, sao_chroma)):
         if not on:
             continue

@@ -2,8 +2,9 @@
 # into p265_tpu_torch/build/ (gitignored), not beside its source, and is
 # written under a temporary name and renamed into place, so processes
 # that build at once never load a half-written file; it is built from
-# replay.c (the motion replay, which includes ctu.c), and _build takes
-# its sources and library path as arguments.
+# deblock.c (the deblocking edge parameters, which includes replay.c, the
+# motion replay, which includes ctu.c), and _build takes its sources and
+# library path as arguments.
 """Native CABAC fast lane: builds cabac.c with the system compiler, loads it
 via ctypes, and exposes drop-in decoder/context classes.
 
@@ -25,6 +26,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "cabac.c")
 _SRC_CTU = os.path.join(_DIR, "ctu.c")  # includes cabac.c (single TU)
 _SRC_REPLAY = os.path.join(_DIR, "replay.c")  # includes ctu.c
+_SRC_DEBLOCK = os.path.join(_DIR, "deblock.c")  # includes replay.c
 _SO = os.path.join(os.path.dirname(_DIR), "build", "_cabac.so")
 
 _lib = None
@@ -49,7 +51,8 @@ class _CtxOffsets(ctypes.Structure):
                  "sig", "gt1", "gt2")]
 
 
-def _build(srcs=(_SRC, _SRC_CTU, _SRC_REPLAY), so=_SO) -> bool:
+def _build(srcs=(_SRC, _SRC_CTU, _SRC_REPLAY, _SRC_DEBLOCK),
+           so=_SO) -> bool:
     """Compile the last of `srcs` that exists (each includes the one
     before it) into `so`, unless `so` is newer than all of them."""
     try:

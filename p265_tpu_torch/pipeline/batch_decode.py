@@ -58,9 +58,10 @@ def build_batch(tplans: list, plans: list, mc: list | None = None,
     "mc", "pcm" (flat indices into the tall plane and samples of every PCM
     TU, or None) and "attached" (the PlanePlans and their segment offsets,
     for their inter_pred).  stats: optional dict accumulating pack_s
-    and pack_cpu_s (spans.span).  filters=False packs no filter stage and
-    no bypass mask: filter_planes then only casts the prefilter planes to
-    uint8."""
+    and pack_cpu_s (spans.span), and pack_filter_params' edge_params_s,
+    its _cpu_s (nested in pack) and edge_params_c_pictures.
+    filters=False packs no filter stage and no bypass mask: filter_planes
+    then only casts the prefilter planes to uint8."""
     with span(stats, "pack"):
         F = len(tplans)
         sps = plans[0].sps
@@ -72,7 +73,7 @@ def build_batch(tplans: list, plans: list, mc: list | None = None,
         merged = merge_segments(pps_)
         itu = hoist_inter(merged)
         if filters:
-            fp = pack_filter_params(plans)
+            fp = pack_filter_params(plans, stats=stats)
             deblock_on, sao_luma, sao_chroma = filter_flags(plans[0])
         else:
             fp = pack_filter_params(plans, flags=(False, False, False),

@@ -25,11 +25,11 @@ from p265_tpu_torch.spans import span
 
 # the spans of TorchDecoder.stats (spans.py), by the one thread that
 # writes each: the caller's (the parse thread) finalize and tensor_plan;
-# the recon worker mc_pack, ref_stack (inside mc_pack), pack, upload and
-# dispatch; the fetch (the fetch worker in PipelinedTorchDecoder, the
-# recon worker here) fetch
-SPANS = ("finalize", "tensor_plan", "mc_pack", "ref_stack", "pack", "upload",
-         "dispatch", "fetch")
+# the recon worker mc_pack, ref_stack (inside mc_pack), pack, edge_params
+# (inside pack: the deblocking grids), upload and dispatch; the fetch (the
+# fetch worker in PipelinedTorchDecoder, the recon worker here) fetch
+SPANS = ("finalize", "tensor_plan", "mc_pack", "ref_stack", "pack",
+         "edge_params", "upload", "dispatch", "fetch")
 # the counters, by the one thread that writes each: the parse thread's
 # replay_pus and replay_bi_pus (the PUs the native motion replay derived,
 # and those with both ref_idx >= 0) and tmvp_pictures (pictures whose
@@ -128,10 +128,13 @@ class TorchDecoder(DecoderBase):
         self._open: list = []       # the open frame-DAG group
         # every key exists before the first picture, and each is written
         # by one thread only; queue_wait_s (the recon worker's) sums each
-        # picture's wait for the recon worker, 0 where nothing queues
+        # picture's wait for the recon worker, 0 where nothing queues;
+        # edge_params_c_pictures (the recon worker's) counts the pictures
+        # whose deblocking grids the C call derived (native/deblock.py)
         self.stats.update({k + sfx: 0.0 for k in SPANS
                            for sfx in ("_s", "_cpu_s")})
-        self.stats.update(queue_wait_s=0.0, h2d_bytes=0, h2d_copies=0)
+        self.stats.update(queue_wait_s=0.0, h2d_bytes=0, h2d_copies=0,
+                          edge_params_c_pictures=0)
         self.stats.update({k: 0 for k in COUNTERS})
 
     def _finish_picture(self) -> None:

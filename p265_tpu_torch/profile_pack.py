@@ -15,6 +15,10 @@ and times, best of `reps` on warm caches:
   recon_s;
 - each Stage-B host phase of the port: the tensor plan (`_build_tplan`),
   `merge_segments`, `hoist_inter`, `stack_plane`, `pack_filter_params`,
+  and beside it the deblocking grids it derives, by the C call a picture
+  (`edge_params_c`, native/deblock.py, what pack_filter_params runs where
+  the native library loads) and by the NumPy reference
+  (`edge_params_numpy`, luma_edge_params and chroma_edge_params),
   `mc_arrays` (P pictures: the MC pack over the PU table), `pcm_samples`,
   the whole `build_batch`, the staging fill (kernels/staging.py `fill`
   into a ring slot), the enqueue of its one copy (`send`), and the
@@ -115,7 +119,9 @@ def picture(dec, task, frame, device, reps: int) -> dict:
         hoist_inter=best(wf.hoist_inter, reps,
                          lambda: (wf.merge_segments(pps_),)),
         stack_plane=best(lambda: wf.stack_plane(merged), reps),
-        pack_filter_params=best(lambda: lf.pack_filter_params([plan]), reps))
+        pack_filter_params=best(lambda: lf.pack_filter_params([plan]), reps),
+        edge_params_c=best(lambda: lf._edge_grids_c([plan]), reps),
+        edge_params_numpy=best(lambda: lf._edge_grids_numpy([plan]), reps))
     rest = {}
     mc_arr = refs = None
     if plan.pus:

@@ -59,7 +59,8 @@ COPIED = ("tables.py", "yuv.py",
 _HOST_MC = ("from p265_tpu_torch.golden.recon import build_inter_pred\n",
             "pred = build_inter_pred(plan, refs or {})\n")
 
-_PORT_BUILD = '''def _build(srcs=(_SRC, _SRC_CTU, _SRC_REPLAY), so=_SO) -> bool:
+_PORT_BUILD = '''def _build(srcs=(_SRC, _SRC_CTU, _SRC_REPLAY, _SRC_DEBLOCK),
+           so=_SO) -> bool:
     """Compile the last of `srcs` that exists (each includes the one
     before it) into `so`, unless `so` is newer than all of them."""
     try:
@@ -237,8 +238,10 @@ DEVIATIONS = {
          '(single TU)\n',
          '_SRC_CTU = os.path.join(_DIR, "ctu.c")  # includes cabac.c '
          '(single TU)\n'
-         '_SRC_REPLAY = os.path.join(_DIR, "replay.c")  # includes ctu.c\n'),
-        # the library is built from replay.c, under a temporary name
+         '_SRC_REPLAY = os.path.join(_DIR, "replay.c")  # includes ctu.c\n'
+         '_SRC_DEBLOCK = os.path.join(_DIR, "deblock.c")  # includes '
+         'replay.c\n'),
+        # the library is built from deblock.c, under a temporary name
         # renamed into place; sources and library are arguments
         ("def _build() -> bool:\n", "def _load():\n", _PORT_BUILD),
     ],

@@ -235,8 +235,9 @@ def test_decode_one_copy_a_dispatch(name, cls, monkeypatch):
 
 def test_profile_pack_cpu(capsys):
     """profile_pack at 96x64 on the CPU: one JSON record, every phase of
-    every picture timed, the P pictures' MC pack and rest split, both
-    decoders' passes."""
+    every picture timed (the deblocking grids by C and by NumPy among
+    them), the P pictures' MC pack and rest split, both decoders'
+    passes."""
     profile_pack.main(["s96x64_ldp5", "--device", "cpu", "--reps", "1",
                        "--turns", "1"])
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -247,6 +248,7 @@ def test_profile_pack_cpu(capsys):
         assert all(v >= 0 for v in p["phases"].values())
         assert p["h2d_bytes"] > 0 and p["finalize_s"] > 0
         assert ("mc_arrays" in p["phases"]) == (p["kind"] == "P")
+        assert {"edge_params_c", "edge_params_numpy"} <= set(p["phases"])
         assert ("ref_stacks" in p["rest"]) == (p["kind"] == "P")
     assert len(rec["passes"]["serial"]) == len(rec["passes"]["pipelined"])
     assert all(s > 0 for s in rec["passes"]["serial"])
